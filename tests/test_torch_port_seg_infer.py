@@ -1,0 +1,137 @@
+"""The slice end to end: a JAX-saved base-4 checkpoint and a phantom through
+JAX's segmentation() and the port's seg_infer CLI on the CPU, in float32.
+
+The masks must be identical, or agree on >= 99.9% of voxels with every
+differing voxel an argmax near-tie: |p0 - p1| < 1e-4 in JAX's probability
+maps, plus their float16 storage step (2^-11 near 0.5).
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from phantoms import make_sphere_case
+from segmentation3d_tpu.core.seg_infer import segmentation as jax_segmentation
+from segmentation3d_tpu.io import read_image as jax_read
+from segmentation3d_tpu.utils import model_io as jax_io
+from segmentation3d_tpu.utils.normalizer import AdaptiveNormalizer
+from segmentation3d_tpu_torch.cli.seg_infer import main as seg_infer
+from segmentation3d_tpu_torch.core.seg_infer import segmentation
+from test_torch_port_checkpoint import KW, seeded_variables
+
+PARTITIONS = {
+    "DISABLE": {},
+    "SIZE": {"partition_size": [16, 16, 16], "partition_stride": [8, 8, 8]},
+    "SLAB": {"partition_size": [32, 32, 16], "partition_stride": [8, 8, 8]},
+    "NUM": {"partition_size": [2, 1, 2]},
+}
+
+
+@pytest.fixture(scope="module")
+def case(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("e2e"))
+    imgs, _ = make_sphere_case(d, "case", shape_zyx=(30, 34, 28),
+                               spacing=(1.1, 0.9, 1.3))
+    v, _ = seeded_variables(seed=4)
+    model_dir = os.path.join(d, "model")
+    jax_io.save_checkpoint(model_dir, 1, 0, v, "vnet", 4, 1, 2, [1.0, 1.0, 1.0],
+                           "LINEAR", [AdaptiveNormalizer()],
+                           extra={"net_kwargs": dict(KW)})
+    return d, imgs[0], model_dir
+
+
+@pytest.mark.parametrize("partition", list(PARTITIONS))
+def test_cli_matches_jax_segmentation(case, partition):
+    d, img, model_dir = case
+    opts = PARTITIONS[partition]
+    jax_segmentation(img, model_dir, os.path.join(d, "jax_" + partition),
+                     partition_type=partition, save_prob=True, **opts)
+    argv = ["-i", img, "-m", model_dir, "-o", os.path.join(d, "port_" + partition),
+            "-g", "-1", "--save_prob", "--save_image",
+            "--partition_type", partition]
+    for k, v in opts.items():
+        argv += [f"--{k}"] + [str(t) for t in v]
+    res = seg_infer(argv)
+    assert [r[0] for r in res] == ["case_mod0"]
+    assert set(res[0][2]) == {"read", "prep", "forward", "back", "write"}
+
+    def out(root, name):
+        return jax_read(os.path.join(d, root, "case_mod0", name))
+    ref, got = out("jax_" + partition, "seg.mha"), out("port_" + partition, "seg.mha")
+    assert got.data.shape == ref.data.shape == (30, 34, 28)
+    assert got.data.dtype == np.uint8
+    assert got.frame.to_dict() == ref.frame.to_dict()
+    assert 0.05 < np.mean(ref.data == 1) < 0.95  # both labels present
+    differ = got.data != ref.data
+    assert differ.mean() <= 1e-3
+    p0, p1 = (out("jax_" + partition, f"prob_{c}.mha").data for c in (0, 1))
+    assert np.all(np.abs(p0 - p1)[differ] < 1e-4 + 2.0 ** -11)
+    for c in (0, 1):
+        np.testing.assert_allclose(out("port_" + partition, f"prob_{c}.mha").data,
+                                   out("jax_" + partition, f"prob_{c}.mha").data,
+                                   atol=2e-3)
+    np.testing.assert_array_equal(out("port_" + partition, "org.mha").data,
+                                  jax_read(img).data)
+
+
+def test_post_processing_keeps_largest_component(case):
+    d, img, model_dir = case
+    base = ["-i", img, "-m", model_dir, "-g", "-1"]
+    seg_infer(base + ["-o", os.path.join(d, "plain")])
+    seg_infer(base + ["-o", os.path.join(d, "post"), "--post", "largest_cc"])
+    plain = jax_read(os.path.join(d, "plain", "case_mod0", "seg.mha")).data
+    post = jax_read(os.path.join(d, "post", "case_mod0", "seg.mha")).data
+    assert np.all(post <= plain)  # only removes foreground
+
+
+def test_checkpoint_selector(case):
+    d, img, model_dir = case
+    with pytest.raises(FileNotFoundError):
+        segmentation(img, model_dir, os.path.join(d, "sel"), checkpoint=7,
+                     device="cpu")
+
+
+def test_segmentation_refuses_silent_cpu(case):
+    """Without a CUDA device the entry point raises unless the CPU is asked
+    for: there is no silent CPU path."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    d, img, model_dir = case
+    with pytest.raises(RuntimeError, match="CUDA"):
+        segmentation(img, model_dir, os.path.join(d, "nocuda"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seg_infer(["-i", img, "-m", model_dir, "-o", os.path.join(d, "nocuda")])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--int8"], ["--int8_calib", "x.nii.gz"], ["--act_clip", "4"],
+    ["--tta", "x"], ["-m", "other_model"], ["--fine_model", "fine"],
+    ["--num_devices", "2"], ["--spatial_shard"],
+])
+def test_cli_refuses_unported_options(extra, capsys):
+    with pytest.raises(SystemExit) as e:
+        seg_infer(["-i", "in.nii.gz", "-m", "model", "-o", "out", "-g", "-1"]
+                  + extra)
+    assert e.value.code == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_ensembles_refused_in_api(case):
+    d, img, model_dir = case
+    with pytest.raises(NotImplementedError):
+        segmentation(img, [model_dir, model_dir], os.path.join(d, "ens"),
+                     device="cpu")
+
+
+def test_cli_bf16_on_cpu(case):
+    """--bf16 on the CPU runs the nn.Module under bf16 autocast (the folded
+    kernel forward is the CUDA rule); its mask agrees with float32 on
+    >= 98% of voxels (tests/test_pallas_conv.py's bf16 bar)."""
+    d, img, model_dir = case
+    base = ["-i", img, "-m", model_dir, "-g", "-1"]
+    seg_infer(base + ["-o", os.path.join(d, "f32")])
+    seg_infer(base + ["-o", os.path.join(d, "bf16"), "--bf16"])
+    a = jax_read(os.path.join(d, "f32", "case_mod0", "seg.mha")).data
+    b = jax_read(os.path.join(d, "bf16", "case_mod0", "seg.mha")).data
+    assert np.mean(a == b) >= 0.98

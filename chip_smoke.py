@@ -3,11 +3,15 @@
 NVIDIA GPU:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: compiles the hand-written kernel (``csrc/thin_conv3d.cu``) with
-   nvcc for sm_90a;
+2. build: compiles the hand-written kernels (``csrc/thin_conv3d.cu``,
+   ``csrc/window_conv_i8.cu``) with nvcc for sm_90a, one nvcc each, in
+   parallel;
 3. kernels: holds ``thin_conv3d`` against its plain PyTorch version at every
    conv site of the bf16 V-Net forward (96^3 patches, batch 8, full width)
-   and times the kernel, the plain version, a cuDNN yardstick and the bound;
+   and at the int8 forward's stem, and ``window_conv_i8`` against its plain
+   version at every int8 3^3 site of the int8 forward (int8 outputs must be
+   exactly equal); times each kernel, its plain version, a cuDNN yardstick
+   and the bound;
 4. main path: ``seg_infer --bf16 --partition_type SIZE`` on a seeded
    512x512x240 CT-like volume with a seeded full-width V-Net, counting the
    kernel's launches; then the same case through the float32 ``nn.Module``
@@ -15,7 +19,10 @@ NVIDIA GPU:
    and its head is biased so that about half of the body is foreground, so
    the mask depends on the forward: the two masks must agree on >= 98% of
    voxels, with a foreground Dice and a largest probability gap within
-   limits.
+   limits;
+5. int8 main path: ``seg_infer --int8`` on the same case and net, counting
+   both kernels' launches, then ``--int8`` and ``--int8 --int8_calib`` held
+   against the float32 run as in 4.
 
 Each phase prints one JSON line; any failed check exits nonzero. The last
 lines are the kernel summary, and ``{"ok": true, "device": ...}``.
@@ -31,14 +38,17 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1.979e15  # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 BATCH, PATCH = 8, 96
-AGREE_MIN = 0.98          # bf16 vs f32 mask agreement (tests/test_pallas_conv.py)
-# bf16 vs f32 foreground Dice and largest probability gap: about twice the
-# gaps of a sound forward of this seeded case on an H100 (Dice 0.9968, gap
-# 0.0295), so a BN fold with eps 1e-3 instead of 1e-5 already fails
-DICE_MIN = 0.99
-DPROB_MAX = 0.06
+AGREE_MIN = 0.98          # mask agreement with f32 (tests/test_pallas_conv.py, test_quant.py)
+# foreground Dice and largest probability gap against the f32 run: about
+# twice the gaps of a sound forward of this seeded case on an H100, 700 W
+# (bf16: Dice 0.99994, gap 0.0078; int8: Dice 0.99945, gap 0.309;
+# calibrated int8: Dice 0.99920, gap 0.062)
+DICE_MIN = 0.9998
+DPROB_MAX = 0.02
+INT8_LIMITS = {"int8_prob": (0.998, 0.6), "int8_calib_prob": (0.998, 0.12)}
 FG_BODY = (0.2, 0.8)      # foreground share of the body, f32 mask
 
 
@@ -114,6 +124,9 @@ def phase_kernels(torch, tc):
              residual="none", out=torch.float32, per_forward=0),
         dict(name="int8 out", size=PATCH // 2, cin=32, cout=32, act="relu",
              residual="relu", out=torch.int8, per_forward=0),
+        # the int8 forward's stem: full-precision patch in, int8 out
+        dict(name="stem int8 out", size=PATCH, cin=1, cout=16, act="relu",
+             residual="none", out=torch.int8, per_forward=0),
     ]
     results = []
     for c in cases:
@@ -184,13 +197,14 @@ def phase_kernels(torch, tc):
 def phantom_hu(z, y, x, rng):
     """A CT-like int16 volume sampled at the millimetre coordinates ``z``,
     ``y``, ``x`` (1-D, 0 at the centre): air at -1000 HU, an elliptic body
-    (fat, soft tissue), organs, a spine, noise."""
+    (soft tissue inside a fat ring, 60% and 40% of it), organs, a spine,
+    noise."""
     import numpy as np
     zz, yy, xx = np.meshgrid(z, y, x, indexing="ij", sparse=True)
     body2d = ((xx / 160.0) ** 2 + (yy / 110.0) ** 2)[0]
     img = np.full((len(z), len(y), len(x)), -1000, np.int16)
     img[:, body2d < 1.0] = -100
-    img[:, body2d < 0.8] = 40
+    img[:, body2d < 0.6] = 40
     for (cz, cy, cx, r, hu) in [(0, -20, 60, 45, 60), (30, 10, -70, 35, 150),
                                 (-40, 30, 0, 25, -600), (60, -30, -20, 20, 200)]:
         img[((zz - cz) ** 2 + (yy - cy) ** 2 + (xx - cx) ** 2) < r * r] = hu
@@ -243,10 +257,16 @@ def seeded_vnet(torch, seed=0):
 def calibrate(torch, net, normalizer, seed=1):
     """Give ``net`` the BatchNorm statistics of two seeded 96^3 phantom
     patches at 1 mm (one inside the body, one across its edge), as training
-    would leave them, and bias its head so that half of the patches' body
-    voxels are foreground. A random net's head otherwise leaves most voxels
-    at one constant logit, and a mask check on it is vacuous."""
+    would leave them, and fit its head conv to the patches' soft tissue (HU
+    above -30: muscle, organs, bone; not fat, lung or air) by one
+    least-squares solve over its 3^3 x 32 inputs at 60,000 body voxels, as
+    a trained head separates its classes with a margin. A random head
+    leaves most voxels at one constant logit, so a mask check on it is
+    vacuous; a random head biased to its median log-odds puts the decision
+    boundary in the densest part of the body, where the int8 forward's own
+    rounding flips a few percent of the voxels."""
     import numpy as np
+    import torch.nn.functional as F
     rng = np.random.default_rng(seed)
     mm = np.arange(96) + 0.5
     hu = np.stack([phantom_hu(mm - 48, mm - 60, mm + 20, rng),
@@ -260,12 +280,178 @@ def calibrate(torch, net, normalizer, seed=1):
     with torch.no_grad():
         net(x)
     net.eval()
+    head = net.out_block
+    feats = []
+    hook = head.conv.register_forward_hook(lambda m, i, o: feats.append(i[0]))
     with torch.no_grad():
-        net.out_block.conv.bn.bias.fill_(1.0)  # keep the head's relu live
-        logits = net(x, return_logits=True)
-        logodds = (logits[..., 1] - logits[..., 0])[torch.from_numpy(hu > -500)]
-        net.out_block.proj.bias[1] -= logodds.median()
+        net(x)
+    hook.remove()
+    # the head conv's input [N, 32, D, H, W] at sampled body voxels, tap by
+    # tap; fitted on the body only, as air would pull a near-linear fit
+    # towards putting fat on the soft-tissue side
+    f = F.pad(feats[0], (1, 1, 1, 1, 1, 1))
+    vox = torch.nonzero(torch.from_numpy(hu > -500))
+    g = torch.Generator().manual_seed(seed)
+    n, z, y, xx = vox[torch.randperm(len(vox), generator=g)[:60000]].T
+    a = torch.cat([f[n, :, z + dz, y + dy, xx + dx] for dz in range(3)
+                   for dy in range(3) for dx in range(3)], dim=1).double()
+    a = torch.cat([a, torch.ones(len(a), 1, dtype=a.dtype)], dim=1)
+    target = torch.from_numpy(hu > -30)[n, z, y, xx].double() * 2 - 1
+    coef = torch.linalg.solve(a.T @ a, a.T @ target).float()
+    w = coef[:-1].view(3, 3, 3, -1).permute(3, 0, 1, 2)
+    with torch.no_grad():
+        # channel 1 is q = w * f + b, channel 0 is -q; BN is the identity
+        # plus 1, so relu keeps the sign of q and the log-odds
+        # 0.5 * (relu(1 + q) - relu(1 - q)) are q where |q| <= 1
+        conv, bn = head.conv.conv, head.conv.bn
+        conv.weight.copy_(torch.stack([-w, w]))
+        conv.bias.copy_(torch.stack([-coef[-1], coef[-1]]))
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0 - bn.eps)
+        bn.weight.fill_(1.0)
+        bn.bias.fill_(1.0)
+        head.proj.weight.copy_(0.5 * torch.eye(2).view(2, 2, 1, 1, 1))
+        head.proj.bias.zero_()
     return net
+
+
+def site_list_i8():
+    """Every window_conv_i8 site of one int8 forward of the default V-Net on
+    a batch of 96^3 patches: (name, spatial size, cin, cout, residual
+    identity, output, launches per forward). A single-conv residual block's
+    conv carries its tail with its own input as the identity; the others
+    run without one (the last conv of a multi-conv chain reads the block
+    input as its identity: the "multi-conv tail" variant)."""
+    s = PATCH
+    return [
+        ("down_32.res", s // 2, 32, 32, "same", "int8", 1),
+        ("down_64.res", s // 4, 64, 64, None, "int8", 2),
+        ("down_128.res", s // 8, 128, 128, None, "int8", 3),
+        ("down_256.res", s // 16, 256, 256, None, "int8", 3),
+        ("up_256.res", s // 8, 256, 256, None, "int8", 3),
+        ("up_128.res", s // 4, 128, 128, None, "int8", 3),
+        ("up_64.res", s // 2, 64, 64, None, "int8", 2),
+        ("up_32.res", s, 32, 32, "same", "int8", 1),
+        ("head", s, 32, 2, None, "bf16", 1),
+    ]
+
+
+def phase_kernels_i8(torch, wi):
+    """window_conv_i8 vs its plain version at the int8 forward's site
+    shapes, plus a multi-conv tail (separate identity) and a prelu variant.
+    int8 outputs must be exactly equal, the bf16 head within one step."""
+    import torch.nn.functional as F
+    from segmentation3d_tpu_torch.ops.quant import requant
+    from segmentation3d_tpu_torch.ops.thin_conv import activation
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dev = torch.device("cuda")
+    cases = [dict(name=n, size=sz, cin=ci, cout=co, ident=t, out=o, act="relu",
+                  per_forward=k) for n, sz, ci, co, t, o, k in site_list_i8()]
+    cases += [
+        dict(name="multi-conv tail (separate identity)", size=PATCH // 4,
+             cin=64, cout=64, ident="separate", out="int8", act="relu",
+             per_forward=0),
+        dict(name="prelu + prelu tail", size=PATCH // 2, cin=32, cout=32,
+             ident="same", out="int8", act="prelu", per_forward=0),
+    ]
+
+    def ints(shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=g,
+                             dtype=torch.int16).to(torch.int8)
+
+    results = []
+    for c in cases:
+        s, ci, co, act = c["size"], c["cin"], c["cout"], c["act"]
+        x = ints((BATCH, s, s, s, ci))
+        w = ints((3, 3, 3, ci, co))
+        # dequant so that the activations spread over the int8 range
+        scale = (torch.rand(co, device=dev, generator=g) + 0.5) \
+            / (127.0 * 127.0 * 3 * ci ** 0.5)
+        bias = torch.randn(co, device=dev, generator=g) * 0.5
+        ident = {"same": x, "separate": ints((BATCH, s, s, s, co)),
+                 None: None}[c["ident"]]
+        int8 = c["out"] == "int8"
+        kw = dict(out=c["out"], inv_out=127.0 / 6.0 if int8 else None,
+                  identity=ident, s_id=5.0 / 127.0 if ident is not None else None,
+                  res_act=act if ident is not None else "none", res_alpha=0.2)
+        out = wi.window_conv_i8(x, w, scale, bias, act, 0.1, **kw)
+        ref = wi.window_conv_i8_reference(x, w, scale, bias, act, 0.1, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(out.float()).all()), f"{c['name']}: non-finite")
+        live = float((out != 0).float().mean())
+        check(live > 0.05, f"{c['name']}: only {live} of outputs nonzero")
+        if int8:
+            # any difference means the epilogue's order or rounding differs
+            tol = 0.0
+            check(torch.equal(out, ref), f"{c['name']}: int8 output differs "
+                  f"from the plain version (max abs err {err})")
+        else:
+            tol = float((ref.float().abs() * 2.0 ** -8).max())
+            d = (out.float() - ref.float()).abs() <= ref.float().abs() * 2.0 ** -8
+            check(bool(d.all()), f"{c['name']}: more than one bf16 step off")
+
+        # cuDNN yardstick: PyTorch has no int8 3D conv on CUDA, so F.conv3d
+        # in bf16 on the same integer values, plus the same epilogue
+        w_lib = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        sv, bv = scale.view(1, -1, 1, 1, 1), bias.view(1, -1, 1, 1, 1)
+        id_lib = ident.permute(0, 4, 1, 2, 3) if ident is not None else None
+
+        def library():
+            a = F.conv3d(x.permute(0, 4, 1, 2, 3).to(torch.bfloat16), w_lib,
+                         padding=1).float()
+            a = activation(a * sv + bv, act, 0.1)
+            if id_lib is not None:
+                a = activation(id_lib.float() * (5.0 / 127.0) + a, act, 0.2)
+            return requant(a, 127.0 / 6.0) if int8 else a.to(torch.bfloat16)
+
+        reps = 20 if s <= PATCH // 2 else 10
+        kernel_ms = cuda_ms(lambda: wi.window_conv_i8(x, w, scale, bias, act,
+                                                      0.1, **kw), reps)
+        plain_ms = cuda_ms(lambda: wi.window_conv_i8_reference(
+            x, w, scale, bias, act, 0.1, **kw), 2)
+        library_ms = cuda_ms(library, reps)
+        vox = BATCH * s ** 3
+        out_bytes = 1 if int8 else 2
+        nbytes = vox * ci + vox * co * out_bytes + 27 * ci * co + 8 * co
+        if c["ident"] == "separate":
+            nbytes += vox * co
+        ops = 2 * 27 * ci * co * vox
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
+        r = dict(site=c["name"], shape=[BATCH, s, s, s, ci], cout=co, act=act,
+                 identity=c["ident"], out=c["out"],
+                 path=wi.kernel_path(ci, co), per_forward=c["per_forward"],
+                 max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
+                 plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 ops=ops, bytes=nbytes, tops=ops / kernel_ms / 1e9)
+        emit("kernel_i8", **r)
+        results.append(r)
+        del x, w, ident, out, ref, w_lib, id_lib
+        torch.cuda.empty_cache()
+    return results
+
+
+def mask_gaps(np, read_image, a, b, body):
+    """Agreement, foreground Dice, largest probability gap and the
+    foreground share of the body (of ``a``'s mask) between two runs that
+    saved their probabilities."""
+    dprob = 0.0
+    for c in range(2):
+        pa = read_image(os.path.join(a["out"], f"prob_{c}.mha")).data
+        pb = read_image(os.path.join(b["out"], f"prob_{c}.mha")).data
+        check(bool(np.isfinite(pa).all() and np.isfinite(pb).all()),
+              "non-finite probabilities")
+        dprob = max(dprob, float(np.abs(pa - pb).max()))
+    fg = [r["mask"] == 1 for r in (a, b)]
+    return dict(
+        agreement=float(np.mean(a["mask"] == b["mask"])),
+        foreground_dice=float(2 * np.sum(fg[0] & fg[1])
+                              / max(1, np.sum(fg[0]) + np.sum(fg[1]))),
+        max_abs_dprob=dprob, foreground_fraction_of_body=float(np.mean(fg[0][body])),
+        foreground_fraction=float(np.mean(fg[0])))
 
 
 def phase_main(torch, tc, workdir, gpu):
@@ -325,22 +511,15 @@ def phase_main(torch, tc, workdir, gpu):
 
     bf16 = run("bf16_prob", ["--bf16", "--save_prob"])
     f32 = run("f32_prob", ["--save_prob"])
-    agree = float(np.mean(bf16["mask"] == f32["mask"]))
-    dprob = 0.0
-    for c in range(2):
-        a = read_image(os.path.join(bf16["out"], f"prob_{c}.mha")).data
-        b = read_image(os.path.join(f32["out"], f"prob_{c}.mha")).data
-        check(bool(np.isfinite(a).all() and np.isfinite(b).all()),
-              "non-finite probabilities")
-        dprob = max(dprob, float(np.abs(a - b).max()))
-    fg = [r["mask"] == 1 for r in (bf16, f32)]
-    dice = float(2 * np.sum(fg[0] & fg[1]) / max(1, np.sum(fg[0]) + np.sum(fg[1])))
-    fg_body = float(np.mean(fg[1][body]))
+    gaps = mask_gaps(np, read_image, bf16, f32, body)
+    agree, dice, dprob = (gaps[k] for k in ("agreement", "foreground_dice",
+                                            "max_abs_dprob"))
+    fg_body = float(np.mean((f32["mask"] == 1)[body]))
     emit("bf16_vs_f32", agreement=agree, min_agreement=AGREE_MIN,
          foreground_dice=dice, min_dice=DICE_MIN,
          max_abs_dprob=dprob, max_dprob=DPROB_MAX,
-         foreground_fraction_bf16=float(np.mean(fg[0])),
-         foreground_fraction_f32=float(np.mean(fg[1])),
+         foreground_fraction_bf16=gaps["foreground_fraction"],
+         foreground_fraction_f32=float(np.mean(f32["mask"] == 1)),
          foreground_fraction_of_body_f32=fg_body, body_fraction=float(np.mean(body)),
          f32_seconds=f32["wall"], f32_stages=f32["stages"], gpu=gpu)
     check(FG_BODY[0] <= fg_body <= FG_BODY[1],
@@ -348,7 +527,70 @@ def phase_main(torch, tc, workdir, gpu):
     check(agree >= AGREE_MIN, f"bf16/f32 agreement {agree} < {AGREE_MIN}")
     check(dice >= DICE_MIN, f"bf16/f32 foreground Dice {dice} < {DICE_MIN}")
     check(dprob <= DPROB_MAX, f"bf16/f32 max |dprob| {dprob} > {DPROB_MAX}")
-    return launches
+    return dict(launches=launches, run=run, f32=f32, body=body, ct=ct,
+                n_batches=n_batches)
+
+
+def phase_main_int8(torch, tc, wi, ctx, gpu):
+    """``seg_infer --int8`` on the main path's case: both kernels' launches,
+    warm volumes/min, then int8 and calibrated int8 vs the float32 run."""
+    import numpy as np
+    from segmentation3d_tpu_torch.io import read_image
+    run, n_batches = ctx["run"], ctx["n_batches"]
+    # the int8 main path: counts reset just before, read just after
+    tc.thin_conv3d.launches = 0
+    wi.window_conv_i8.launches = 0
+    first = run("int8", ["--int8"])
+    launches = (tc.thin_conv3d.launches, wi.window_conv_i8.launches)
+    check(launches == (n_batches, 19 * n_batches),
+          f"int8 path launched (thin_conv3d, window_conv_i8) {launches}, "
+          f"expected ({n_batches}, 19 x {n_batches})")
+    second = run("int8_again", ["--int8"])
+    for r in (first, second):
+        emit("main_path_int8", run=r["tag"],
+             launches=dict(thin_conv3d=launches[0], window_conv_i8=launches[1])
+             if r is first else None,
+             patch_batches=n_batches, seconds=r["wall"], stages=r["stages"],
+             volumes_per_min=60.0 / r["wall"],
+             max_memory_allocated=r["peak"], gpu=gpu)
+    for tag, extra in (("int8_prob", []),
+                       ("int8_calib_prob", ["--int8_calib", ctx["ct"]])):
+        r = run(tag, ["--int8", "--save_prob"] + extra)
+        gaps = mask_gaps(np, read_image, r, ctx["f32"], ctx["body"])
+        dice_min, dprob_max = INT8_LIMITS[tag]
+        emit("int8_vs_f32", run=tag, **gaps, min_agreement=AGREE_MIN,
+             min_dice=dice_min, max_dprob=dprob_max,
+             seconds=r["wall"], stages=r["stages"], gpu=gpu)
+        fg_body = gaps["foreground_fraction_of_body"]
+        check(FG_BODY[0] <= fg_body <= FG_BODY[1],
+              f"{tag}: foreground is {fg_body} of the body, outside {FG_BODY}")
+        check(gaps["agreement"] >= AGREE_MIN,
+              f"{tag}/f32 agreement {gaps['agreement']} < {AGREE_MIN}")
+        check(gaps["foreground_dice"] >= dice_min,
+              f"{tag}/f32 foreground Dice {gaps['foreground_dice']} < {dice_min}")
+        check(gaps["max_abs_dprob"] <= dprob_max,
+              f"{tag}/f32 max |dprob| {gaps['max_abs_dprob']} > {dprob_max}")
+    return launches[1]
+
+
+def kernel_entry(name, source, replaces, launches, rows, peak_ops, ops_key):
+    """One kernel's entry of the summary line: its per-site rows summed over
+    one forward of a batch of 8 96^3 patches (each row times its launches
+    per forward); ``ops_key`` names the rows' operation count."""
+    fwd = [r for r in rows if r["per_forward"]]
+
+    def per_forward(key):
+        return sum(r[key] * r["per_forward"] for r in fwd)
+
+    t_bytes = sum(r["bytes"] * r["per_forward"] for r in fwd) / PEAK_BYTES
+    t_ops = sum(r[ops_key] * r["per_forward"] for r in fwd) / peak_ops
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in fwd),
+            "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
+            "bound_ms": per_forward("bound_ms"),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": per_forward("library_ms")}
 
 
 def main():
@@ -360,41 +602,39 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from segmentation3d_tpu_torch.ops import cuda_build
     from segmentation3d_tpu_torch.ops import thin_conv as tc
+    from segmentation3d_tpu_torch.ops import window_i8 as wi
 
     gpu = gpu_line()
     emit("device", gpu=gpu, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t = time.perf_counter()
-    lib = tc.build_library()
-    emit("build", seconds=time.perf_counter() - t, library=os.path.relpath(lib, HERE))
+    libs = cuda_build.build_all()
+    check(set(libs) >= {"thin_conv3d", "window_conv_i8"}, f"built {sorted(libs)}")
+    emit("build", seconds=time.perf_counter() - t,
+         libraries={n: os.path.relpath(p, HERE) for n, p in libs.items()})
 
     sites = phase_kernels(torch, tc)
+    sites_i8 = phase_kernels_i8(torch, wi)
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_main(torch, tc, workdir, gpu)
+        ctx = phase_main(torch, tc, workdir, gpu)
+        launches_i8 = phase_main_int8(torch, tc, wi, ctx, gpu)
 
-    fwd = [r for r in sites if r["per_forward"]]
-
-    def per_forward(key):
-        return sum(r[key] * r["per_forward"] for r in fwd)
-
-    t_bytes = sum(r["bytes"] * r["per_forward"] for r in fwd) / PEAK_BYTES * 1e3
-    t_ops = sum(r["flops"] * r["per_forward"] for r in fwd) / PEAK_BF16_FLOPS * 1e3
     print(gpu)
-    print(json.dumps({"kernels": [{
-        "name": "thin_conv3d", "route": "cuda",
-        "source": "segmentation3d_tpu_torch/csrc/thin_conv3d.cu",
-        "replaces": "segmentation3d_tpu/ops/pallas_conv.py:174",
-        "launches": launches,
-        # the main path's bf16 sites; the epilogue variants' errors (int8
-        # in steps) are on their own "kernel" lines
-        "max_abs_err": max(r["max_abs_err"] for r in fwd),
-        # one forward of a batch of 8 96^3 patches: its 20 launches summed
-        "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
-        "bound_ms": per_forward("bound_ms"),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": per_forward("library_ms")}]}))
+    print(json.dumps({"kernels": [
+        # the bf16 main path's 20 launches per forward; the epilogue
+        # variants' errors (int8 in steps) are on their own "kernel" lines
+        kernel_entry("thin_conv3d", "segmentation3d_tpu_torch/csrc/thin_conv3d.cu",
+                     "segmentation3d_tpu/ops/pallas_conv.py:174",
+                     ctx["launches"], sites, PEAK_BF16_FLOPS, "flops"),
+        # the int8 main path's 19 launches per forward
+        kernel_entry("window_conv_i8",
+                     "segmentation3d_tpu_torch/csrc/window_conv_i8.cu",
+                     "segmentation3d_tpu/ops/pallas_i8win.py:144",
+                     launches_i8, sites_i8, PEAK_INT8_OPS, "ops"),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

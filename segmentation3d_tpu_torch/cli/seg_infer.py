@@ -6,11 +6,13 @@
         [--partition_type DISABLE|SIZE|NUM|SLAB] [--partition_size X Y Z]
         [--partition_stride X Y Z] [--batch_size 8] [--blend gaussian]
         [--post largest_cc|remove_small_cc] [--checkpoint WHICH]
+        [--int8 [--act_clip A] [--int8_calib IMG[,IMG2..]]]
 
-``-g N`` runs on ``cuda:N``; ``-g -1`` asks for the CPU. Options this port
-does not have yet (``--int8``, ``--int8_calib``, ``--act_clip``, ``--tta``,
-a repeated ``-m``, ``--fine_model`` and its options, ``--num_devices`` > 1,
-``--spatial_shard``) are refused with an error.
+``-g N`` runs on ``cuda:N``; ``-g -1`` asks for the CPU. ``--int8`` runs the
+int8 forward (and implies ``--bf16``). Options this port does not have yet
+(``--tta``, a repeated ``-m``, ``--fine_model``, ``--roi_margin``,
+``--coarse_checkpoint``, ``--fine_checkpoint``, ``--num_devices`` other than
+1, ``--spatial_shard``) are refused with an error.
 """
 from __future__ import annotations
 
@@ -33,9 +35,6 @@ def post_processing_from_args(args):
 def _not_ported(args):
     """The first given option this port does not have yet, or None."""
     checks = [
-        (args.int8, "--int8"),
-        (args.int8_calib is not None, "--int8_calib"),
-        (args.act_clip is not None, "--act_clip"),
         (args.tta is not None, "--tta"),
         (len(args.model) > 1, "a repeated -m (ensembles)"),
         (args.fine_model is not None, "--fine_model"),
@@ -86,10 +85,17 @@ def build_parser():
     parser.add_argument("--checkpoint", default=None, metavar="WHICH",
                         help="which checkpoint of the model dir to run: "
                              "'latest' (default), 'best', or an epoch number")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 quantized forward (implies --bf16; "
+                             "approximate: validate per model)")
+    parser.add_argument("--act_clip", type=float, default=8.0,
+                        help="--int8 activation saturation point in "
+                             "BN-standardized sigmas (uncalibrated)")
+    parser.add_argument("--int8_calib", default=None, metavar="IMAGE[,IMG2..]",
+                        help="calibrate --int8 activation scales on this "
+                             "representative image (comma-separated paths "
+                             "for multi-modality models)")
     # options of the JAX package that are not ported yet: refused
-    parser.add_argument("--int8", action="store_true", help="not ported yet")
-    parser.add_argument("--act_clip", type=float, default=None, help="not ported yet")
-    parser.add_argument("--int8_calib", default=None, help="not ported yet")
     parser.add_argument("--num_devices", type=int, default=1,
                         help="only 1 is ported")
     parser.add_argument("--spatial_shard", action="store_true", help="not ported yet")
@@ -117,8 +123,10 @@ def main(argv=None):
         partition_size=args.partition_size,
         partition_stride=args.partition_stride, batch_size=args.batch_size,
         blend=args.blend, post_processing=post_processing_from_args(args),
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        checkpoint=args.checkpoint,
+        dtype=torch.bfloat16 if (args.bf16 or args.int8) else torch.float32,
+        checkpoint=args.checkpoint, quant="int8" if args.int8 else None,
+        act_clip=args.act_clip,
+        calib_image=args.int8_calib.split(",") if args.int8_calib else None,
     )
 
 

@@ -11,7 +11,9 @@ The port of ``segmentation3d_tpu/core/seg_infer.py``. Per case:
 Cases run one after another on one device. Under bf16 on a CUDA device the
 forward is the BN-folded kernel forward (:mod:`..models.fused_vnet`), as the
 JAX package's rule picks its fused forward for bf16 off the CPU; float32
-runs the ``nn.Module`` forward with TF32 off.
+runs the ``nn.Module`` forward with TF32 off. ``quant="int8"`` runs the int8
+forward (:mod:`..models.quant_vnet`) on whichever device was resolved: the
+kernels on a CUDA device, their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -205,6 +207,37 @@ def prep_modality(vol: Volume, dst_frame, dst_size, interp, norm, valid_zyx,
     return norm(iso)
 
 
+def _calibrate_for_model(model: SegModel, image_paths, dtype, device,
+                         cap: int = 192):
+    """Per-site activation maxima for the int8 forward, measured on one
+    calibration image (one path per modality) prepared as for inference:
+    resampled to the model's spacing and padded to ``max_stride``,
+    normalized (over the whole resampled volume), then centre-cropped to
+    at most ``cap`` voxels per axis to bound the one full-precision
+    measuring forward."""
+    from segmentation3d_tpu_torch.models.quant_vnet import calibrate_int8
+    if len(image_paths) != model.in_channels:
+        raise ValueError(
+            f"calibration needs {model.in_channels} modality image(s), "
+            f"got {len(image_paths)}")
+    chans = []
+    for p, norm in zip(image_paths, model.normalizers):
+        vol = read_image(p)
+        frame, size = resampled_frame(vol.frame, vol.size_xyz, model.spacing,
+                                      model.max_stride)
+        kind, coeffs, out_shape = resample_plan(vol.frame, frame, size)
+        src = torch.from_numpy(np.asarray(vol.data, np.float32)).to(device)
+        iso = resample_exec(src, kind, coeffs, out_shape, model.interpolation,
+                            0.0, out_dtype=torch.float32)
+        chans.append(norm(iso) if norm is not None else iso)
+    x = torch.stack(chans, dim=-1)
+    crop = []
+    for n in x.shape[:3]:
+        t = min(n, cap)
+        crop.append(slice((n - t) // 2, (n - t) // 2 + t))
+    return calibrate_int8(model.net, [x[tuple(crop)][None]], dtype=dtype)
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -310,7 +343,8 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
                  partition_type=DISABLE, partition_size=None,
                  partition_stride=None, batch_size=8, blend="gaussian",
                  post_processing=None, dtype=torch.float32, fused=None,
-                 shape_bucket=64, checkpoint=None, device=None):
+                 shape_bucket=64, checkpoint=None, device=None, quant=None,
+                 act_clip=8.0, calib_image=None):
     """Segment all cases found at ``input_path`` into ``output_dir``.
 
     Runs on ``cuda:<gpu_id>`` unless ``device`` says otherwise (``"cpu"``,
@@ -319,8 +353,21 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
     (``partition_size``/``partition_stride`` boxes, xyz), SLAB, NUM.
     ``fused``: the BN-folded kernel forward (default: on for bfloat16 on a
     CUDA device). ``checkpoint``: ``None``/``'latest'``, ``'best'`` or an
-    epoch number. Returns ``[(case_name, seconds, seconds_by_stage)]``.
+    epoch number. ``quant="int8"``: the int8 forward, with static
+    activation scales ``act_clip / 127``, or measured on ``calib_image``
+    (a path, or one path per modality) with one full-precision forward.
+    Returns ``[(case_name, seconds, seconds_by_stage)]``.
     """
+    if quant not in (None, "int8"):
+        raise ValueError(f"quant {quant!r} is not one of None, 'int8'")
+    calib_paths = None
+    if calib_image is not None:
+        calib_paths = list(calib_image) if isinstance(calib_image, (list, tuple)) \
+            else [calib_image]
+        if quant is None:
+            raise ValueError("calib_image only applies with quant")
+    if quant is not None and fused is False:
+        raise ValueError("quant requires the fused forward (fused=False given)")
     dev = resolve_device(device, gpu_id)
     if not isinstance(model_dir, (str, os.PathLike)):
         raise NotImplementedError("ensembles (several model directories) "
@@ -332,7 +379,13 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
     if fused is None:
         fused = dtype == torch.bfloat16 and dev.type == "cuda"
     model = load_seg_model(str(model_dir), dev, checkpoint=checkpoint)
-    if fused:
+    if quant is not None:
+        from segmentation3d_tpu_torch.models.quant_vnet import build_int8_forward
+        calib = _calibrate_for_model(model, calib_paths, dtype, dev) \
+            if calib_paths is not None else None
+        forward = build_int8_forward(model.net, act_clip=act_clip, calib=calib,
+                                     dtype=dtype)
+    elif fused:
         from segmentation3d_tpu_torch.models.fused_vnet import build_fused_forward
         forward = build_fused_forward(model.net, dtype=dtype)
     else:

@@ -6,33 +6,23 @@ channels-last ``[B, D, H, W, Cin]`` with ``w`` as ``[3, 3, 3, Cin, Cout]``:
 bf16 operands, f32 accumulation, f32 epilogue, bf16 / f32 / int8 output.
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/thin_conv3d.cu`` (built with ``nvcc`` at first use into ``build/``
-and loaded with ``ctypes``) or raises; on a CPU tensor it runs
-:func:`thin_conv3d_reference`, the plain PyTorch version of the same
-function. :func:`fold_bn_np` folds inference BatchNorm into the conv.
+and loaded with ``ctypes``, :mod:`.cuda_build`) or raises; on a CPU tensor
+it runs :func:`thin_conv3d_reference`, the plain PyTorch version of the
+same function. :func:`fold_bn_np` folds inference BatchNorm into the conv.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from segmentation3d_tpu_torch.ops.cuda_build import load_library
 from segmentation3d_tpu_torch.utils.device import no_tf32
 
 _ACTS = {"none": 0, "relu": 1, "prelu": 2}
 _OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
-
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "thin_conv3d.cu")
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-BUILD_DIR = os.path.join(_REPO, "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
 
 def fold_bn_np(w, b, scale, bias, mean, var, eps: float = 1e-5):
@@ -49,53 +39,18 @@ def fold_bn_np(w, b, scale, bias, mean, var, eps: float = 1e-5):
     return w2, b2
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
-        return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build the thin_conv3d kernel")
-
-
-def build_library() -> str:
-    """Compile ``csrc/thin_conv3d.cu`` for sm_90a into ``build/kernels``
-    (named by the source's hash, so an edited source rebuilds). Returns the
-    path of the shared library."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"thin_conv3d_{digest}.so")
-    if os.path.isfile(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-_LIB = {}
-
-
 def _lib():
     """The loaded kernel library (built on first use)."""
-    if "lib" not in _LIB:
-        lib = ctypes.CDLL(build_library())
+    lib = load_library("thin_conv3d")
+    if not hasattr(lib, "_bound"):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.thin_conv3d_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                            i, f, i, f, i, f, p]
         lib.thin_conv3d_launch.restype = i
         lib.thin_conv3d_uses_tensor_cores.argtypes = [i, i]
         lib.thin_conv3d_uses_tensor_cores.restype = i
-        _LIB["lib"] = lib
-    return _LIB["lib"]
+        lib._bound = True
+    return lib
 
 
 def kernel_path(cin: int, cout: int) -> str:

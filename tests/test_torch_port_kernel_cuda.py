@@ -1,6 +1,6 @@
-"""The hand-written thin_conv3d kernel against its plain PyTorch version,
-on a CUDA device. Imports no JAX, so it runs where only PyTorch is
-installed:
+"""The hand-written kernels (thin_conv3d, window_conv_i8) against their
+plain PyTorch versions, on a CUDA device. Imports no JAX, so it runs where
+only PyTorch is installed:
 
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_port_kernel_cuda.py
 
@@ -10,14 +10,20 @@ error is one bf16 step of the output. An int8 output must match in more
 than 99% of voxels and elsewhere differ by one step: only a sum that the
 two accumulation orders put on opposite sides of a rounding midpoint may
 differ, so a requant that truncated or rounded half away from zero fails.
+
+window_conv_i8 sums int8 products in int32, exactly, and runs the plain
+version's float32 epilogue op for op: its int8 outputs must be exactly
+equal, its bf16 / f32 outputs too (one bf16 step is allowed).
 """
 import numpy as np
 import pytest
 import torch
 
 from segmentation3d_tpu_torch.models.fused_vnet import build_fused_forward
+from segmentation3d_tpu_torch.models.quant_vnet import build_int8_forward
 from segmentation3d_tpu_torch.models.vnet import SegmentationNet
 from segmentation3d_tpu_torch.ops import thin_conv as tc
+from segmentation3d_tpu_torch.ops import window_i8 as wi
 
 _TDT = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
 
@@ -89,3 +95,71 @@ def test_cpu_tensor_never_launches():
     got = tc.thin_conv3d(x, w, b, act="relu")
     assert torch.equal(got, tc.thin_conv3d_reference(x, w, b, act="relu"))
     assert tc.thin_conv3d.launches == before
+
+
+def _i8_inputs(cin, cout, seed, shape, device, tail):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-127, 128, shape + (cin,)).astype(np.int8)
+    w = rng.integers(-127, 128, (3, 3, 3, cin, cout)).astype(np.int8)
+    s = (rng.uniform(0.5, 1.5, cout) / (127.0 * 127.0 * 3 * cin ** 0.5)).astype(np.float32)
+    b = rng.normal(0, 0.5, cout).astype(np.float32)
+    ident = rng.integers(-127, 128, shape + (cout,)).astype(np.int8) if tail else None
+    return [torch.from_numpy(a).to(device) if a is not None else None
+            for a in (x, w, s, b, ident)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,act,tail,out", [
+    (32, 32, "relu", True, "int8"), (64, 64, "prelu", False, "int8"),
+    (128, 64, "relu", False, "int8"), (256, 256, "relu", False, "int8"),
+    (32, 2, "relu", False, "bf16"), (32, 32, "prelu", True, "f32"),
+    (8, 8, "relu", True, "int8"), (4, 8, "prelu", False, "int8"),
+    (3, 5, "none", False, "int8"), (16, 16, "relu", False, "bf16"),
+])
+def test_window_conv_i8_matches_plain(cuda_device, cin, cout, act, tail, out):
+    x, w, s, b, ident = _i8_inputs(cin, cout, cin * 7 + cout, (2, 6, 10, 12),
+                                   cuda_device, tail)
+    kw = dict(out=out, inv_out=127.0 / 6.0 if out == "int8" else None,
+              identity=ident, s_id=5.0 / 127.0 if tail else None,
+              res_act=act if tail and act != "none" else "none", res_alpha=0.3)
+    before = wi.window_conv_i8.launches
+    got = wi.window_conv_i8(x, w, s, b, act, 0.2, **kw)
+    ref = wi.window_conv_i8_reference(x, w, s, b, act, 0.2, **kw)
+    torch.cuda.synchronize()
+    assert wi.window_conv_i8.launches == before + 1
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if out == "int8":
+        assert torch.equal(got, ref)
+        assert 0.05 < (got != 0).float().mean().item()  # not all saturated / zero
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -8, atol=0)
+
+
+@pytest.mark.cuda
+def test_int8_forward_on_card_matches_cpu(cuda_device):
+    """The whole int8 forward on the card (1 thin_conv3d + 7 window_conv_i8
+    launches for this net: 1 + 2 + 2 + 1 residual convs and the head)
+    against the same forward on the CPU (plain
+    versions): they differ only in the stem's float32 sum order."""
+    net = SegmentationNet(1, 2, base_channels=16, down_convs=(1, 2),
+                          up_convs=(2, 1)).eval()
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 16, 16, 32, 1)).astype(np.float32))
+    cpu = build_int8_forward(net)(x)
+    before = (tc.thin_conv3d.launches, wi.window_conv_i8.launches)
+    gpu = build_int8_forward(net.to(cuda_device))(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (tc.thin_conv3d.launches, wi.window_conv_i8.launches) == \
+        (before[0] + 1, before[1] + 7)
+    agree = (gpu.argmax(-1).cpu() == cpu.argmax(-1)).float().mean().item()
+    assert agree >= 0.99
+
+
+def test_window_conv_i8_cpu_tensor_never_launches():
+    x, w, s, b, ident = _i8_inputs(8, 8, 3, (1, 4, 6, 8), "cpu", True)
+    before = wi.window_conv_i8.launches
+    kw = dict(out="int8", inv_out=20.0, identity=ident, s_id=0.05,
+              res_act="relu")
+    got = wi.window_conv_i8(x, w, s, b, "relu", **kw)
+    assert torch.equal(got, wi.window_conv_i8_reference(x, w, s, b, "relu", **kw))
+    assert wi.window_conv_i8.launches == before

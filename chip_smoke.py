@@ -10,8 +10,10 @@ NVIDIA GPU:
    conv site of the bf16 V-Net forward (96^3 patches, batch 8, full width)
    and at the int8 forward's stem, and ``window_conv_i8`` against its plain
    version at every int8 3^3 site of the int8 forward (int8 outputs must be
-   exactly equal); times each kernel, its plain version, a cuDNN yardstick
-   and the bound;
+   exactly equal), each kernel also at one ragged wide site
+   ([8, 37, 50, 61, 32] -> 32); times each kernel, its plain version, a
+   cuDNN yardstick and the bound, and prints each site's design (wgmma or
+   direct) and launch plan (box, stages, shared bytes, blocks);
 4. main path: ``seg_infer --bf16 --partition_type SIZE`` on a seeded
    512x512x240 CT-like volume with a seeded full-width V-Net, counting the
    kernel's launches; then the same case through the float32 ``nn.Module``
@@ -41,6 +43,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1.979e15  # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 BATCH, PATCH = 8, 96
+RAGGED_SHAPE = (37, 50, 61)  # a wide site whose boxes are ragged on every axis
 AGREE_MIN = 0.98          # mask agreement with f32 (tests/test_pallas_conv.py, test_quant.py)
 # foreground Dice and largest probability gap against the f32 run: about
 # twice the gaps of a sound forward of this seeded case on an H100, 700 W
@@ -88,6 +91,19 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def launch_plan(path, dims, cin, cout, elem_bytes):
+    """The kernel line's design and launch plan: box, stages, shared bytes
+    and blocks of the wgmma path (``ops/conv_plan.py``), or the direct
+    path's one thread per voxel."""
+    from segmentation3d_tpu_torch.ops.conv_plan import plan_conv
+    if path == "tensor_cores":
+        return dict(design="wgmma",
+                    plan=plan_conv(BATCH, *dims, cin, cout, elem_bytes).summary())
+    vox = BATCH * dims[0] * dims[1] * dims[2]
+    return dict(design="direct", plan=dict(threads_per_block=128,
+                                           blocks=-(-vox // 128)))
+
+
 def site_list():
     """Every thin_conv3d site of one bf16 forward of the default V-Net
     (base 16, down (1,2,3,3), up (3,3,2,1), 1 -> 2 classes) on a batch of
@@ -118,6 +134,8 @@ def phase_kernels(torch, tc):
                   residual="relu" if res else "none", out=torch.bfloat16,
                   per_forward=k) for n, sz, ci, co, res, k in site_list()]
     cases += [
+        dict(name="ragged wide", dims=RAGGED_SHAPE, cin=32, cout=32, act="relu",
+             residual="relu", out=torch.bfloat16, per_forward=0),
         dict(name="prelu+prelu tail", size=PATCH // 2, cin=32, cout=32,
              act="prelu", residual="prelu", out=torch.bfloat16, per_forward=0),
         dict(name="f32 out", size=PATCH // 4, cin=64, cout=64, act="relu",
@@ -130,8 +148,9 @@ def phase_kernels(torch, tc):
     ]
     results = []
     for c in cases:
-        s, ci, co = c["size"], c["cin"], c["cout"]
-        x = torch.randn(BATCH, s, s, s, ci, device=dev, generator=g)
+        dims = c.get("dims") or (c["size"],) * 3
+        s, ci, co = max(dims), c["cin"], c["cout"]
+        x = torch.randn(BATCH, *dims, ci, device=dev, generator=g)
         x = x.to(torch.bfloat16)
         w = (torch.randn(3, 3, 3, ci, co, device=dev, generator=g)
              * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
@@ -172,15 +191,16 @@ def phase_kernels(torch, tc):
         kernel_ms = cuda_ms(lambda: tc.thin_conv3d(x, w, b, **kw), reps)
         plain_ms = cuda_ms(lambda: tc.thin_conv3d_reference(x, w, b, **kw), 3)
         library_ms = cuda_ms(library, reps)
-        vox = BATCH * s ** 3
+        vox = BATCH * dims[0] * dims[1] * dims[2]
         out_bytes = {torch.bfloat16: 2, torch.float32: 4, torch.int8: 1}[c["out"]]
         nbytes = vox * ci * 2 + vox * co * out_bytes + 27 * ci * co * 2 + co * 4
         flops = 2 * 27 * ci * co * vox
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-        r = dict(site=c["name"], shape=[BATCH, s, s, s, ci], cout=co,
+        r = dict(site=c["name"], shape=[BATCH, *dims, ci], cout=co,
                  act=c["act"], residual=c["residual"],
                  out=str(c["out"]).replace("torch.", ""),
                  path=tc.kernel_path(ci, co), per_forward=c["per_forward"],
+                 **launch_plan(tc.kernel_path(ci, co), dims, ci, co, 2),
                  max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
                  plain_ms=plain_ms, library_ms=library_ms,
                  bound_ms=max(t_bytes, t_ops),
@@ -348,6 +368,8 @@ def phase_kernels_i8(torch, wi):
     cases = [dict(name=n, size=sz, cin=ci, cout=co, ident=t, out=o, act="relu",
                   per_forward=k) for n, sz, ci, co, t, o, k in site_list_i8()]
     cases += [
+        dict(name="ragged wide", dims=RAGGED_SHAPE, cin=32, cout=32,
+             ident="same", out="int8", act="relu", per_forward=0),
         dict(name="multi-conv tail (separate identity)", size=PATCH // 4,
              cin=64, cout=64, ident="separate", out="int8", act="relu",
              per_forward=0),
@@ -361,14 +383,15 @@ def phase_kernels_i8(torch, wi):
 
     results = []
     for c in cases:
-        s, ci, co, act = c["size"], c["cin"], c["cout"], c["act"]
-        x = ints((BATCH, s, s, s, ci))
+        dims = c.get("dims") or (c["size"],) * 3
+        s, ci, co, act = max(dims), c["cin"], c["cout"], c["act"]
+        x = ints((BATCH, *dims, ci))
         w = ints((3, 3, 3, ci, co))
         # dequant so that the activations spread over the int8 range
         scale = (torch.rand(co, device=dev, generator=g) + 0.5) \
             / (127.0 * 127.0 * 3 * ci ** 0.5)
         bias = torch.randn(co, device=dev, generator=g) * 0.5
-        ident = {"same": x, "separate": ints((BATCH, s, s, s, co)),
+        ident = {"same": x, "separate": ints((BATCH, *dims, co)),
                  None: None}[c["ident"]]
         int8 = c["out"] == "int8"
         kw = dict(out=c["out"], inv_out=127.0 / 6.0 if int8 else None,
@@ -412,16 +435,17 @@ def phase_kernels_i8(torch, wi):
         plain_ms = cuda_ms(lambda: wi.window_conv_i8_reference(
             x, w, scale, bias, act, 0.1, **kw), 2)
         library_ms = cuda_ms(library, reps)
-        vox = BATCH * s ** 3
+        vox = BATCH * dims[0] * dims[1] * dims[2]
         out_bytes = 1 if int8 else 2
         nbytes = vox * ci + vox * co * out_bytes + 27 * ci * co + 8 * co
         if c["ident"] == "separate":
             nbytes += vox * co
         ops = 2 * 27 * ci * co * vox
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
-        r = dict(site=c["name"], shape=[BATCH, s, s, s, ci], cout=co, act=act,
+        r = dict(site=c["name"], shape=[BATCH, *dims, ci], cout=co, act=act,
                  identity=c["ident"], out=c["out"],
                  path=wi.kernel_path(ci, co), per_forward=c["per_forward"],
+                 **launch_plan(wi.kernel_path(ci, co), dims, ci, co, 1),
                  max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
                  plain_ms=plain_ms, library_ms=library_ms,
                  bound_ms=max(t_bytes, t_ops),

@@ -16,20 +16,21 @@
 // full-resolution residual convs sit near the balance point; the 64..256
 // channel convs are compute-bound.
 //
-// What the design does about it (a first, simple version; no TMA, wgmma or
-// warp specialisation yet):
-// - wide sites (Cin % 32 == 0 and Cout % 32 == 0): an implicit GEMM on the
-//   tensor cores (WMMA bf16 16x16x16, f32 accumulators). A block owns 64
-//   output voxels x 32 or 64 output channels; the K loop walks the 27 taps
-//   x 32-channel slices, gathering the shifted input rows (zeros outside
-//   the volume) and the matching weight slice into shared memory.
-// - thin sites (anything else, e.g. the stem and the head): a direct conv on
-//   the CUDA cores, one thread per output voxel x up to 16 output channels,
-//   weights staged in shared memory. No channel is padded: a Cout = 2 head
-//   computes 2 channels, a Cin = 1 stem reads 1 channel.
-// - the epilogue runs on the f32 accumulators in registers / shared memory
-//   and writes the output once; the residual identity is read straight
-//   from the input.
+// What the design does about it:
+// - wide sites (Cin % 32 == 0, any Cout): an implicit GEMM on wgmma
+//   (m64nNk16 bf16 -> f32, N = 8, 32 or 64 output channels per block), the
+//   shared mainloop of conv_wgmma.cuh: the output box's input halo comes
+//   into shared memory once per 16-channel slice by TMA, and the 27 taps are
+//   descriptor offsets into it; the weights, repacked K-major by the wrapper,
+//   come by bulk copy through a ring of mbarrier-tracked stages. The head
+//   (32 -> 2) runs here too, N padded to 8: it is bound by its bytes.
+// - thin sites (Cin not a multiple of 32: the stem, Cin 1..4): a direct
+//   conv on the CUDA cores, one thread per output voxel x up to 16 output
+//   channels, weights staged in shared memory, runs of 8 output channels
+//   written by one vector store. No channel is padded.
+// - the epilogue runs on the f32 accumulators in registers and writes the
+//   output once, two adjacent channels per store; the residual identity is
+//   read straight from the input.
 // The TPU kernel's lane packing (L = 128 // Cout x-positions per lane), its
 // y-tiling and its z-chunk split exist only for the TPU and are not copied.
 //
@@ -38,12 +39,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-namespace {
+#include "conv_wgmma.cuh"
 
-using namespace nvcuda;
+namespace {
 
 enum { ACT_NONE = 0, ACT_RELU = 1, ACT_PRELU = 2 };
 enum { OUT_BF16 = 0, OUT_F32 = 1, OUT_I8 = 2 };
@@ -69,20 +69,29 @@ __device__ __forceinline__ float activate(float v, int kind, float a) {
   return v;
 }
 
-// acc: the f32 conv sum for (vox, co) without bias.
-__device__ __forceinline__ void epilogue(const ConvArgs& p, long long vox,
-                                         int co, float acc) {
+// acc: the f32 conv sum for (vox, co) without bias; returns the value
+// before the output conversion.
+__device__ __forceinline__ float epilogue_value(const ConvArgs& p, long long vox,
+                                                int co, float acc) {
   acc = acc + p.bias[co];
   acc = activate(acc, p.act, p.alpha);
   if (p.residual != ACT_NONE) {
     acc = acc + __bfloat162float(p.x[vox * p.cin + co]);
     acc = activate(acc, p.residual, p.res_alpha);
   }
-  const long long o = vox * p.cout + co;
+  return acc;
+}
+
+__device__ __forceinline__ int8_t requant(const ConvArgs& p, float acc) {
+  float q = rintf(acc * p.inv_sa);
+  q = fminf(fmaxf(q, -127.0f), 127.0f);
+  return static_cast<int8_t>(q);
+}
+
+__device__ __forceinline__ void store_value(const ConvArgs& p, long long o,
+                                            float acc) {
   if (p.out_kind == OUT_I8) {
-    float q = rintf(acc * p.inv_sa);
-    q = fminf(fmaxf(q, -127.0f), 127.0f);
-    static_cast<int8_t*>(p.out)[o] = static_cast<int8_t>(q);
+    static_cast<int8_t*>(p.out)[o] = requant(p, acc);
   } else if (p.out_kind == OUT_F32) {
     static_cast<float*>(p.out)[o] = acc;
   } else {
@@ -90,102 +99,83 @@ __device__ __forceinline__ void epilogue(const ConvArgs& p, long long vox,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core implicit GEMM: M = voxels, N = cout, K = 27 * cin.
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 64;       // output voxels per block (4 warps x 16 rows)
-constexpr int KC = 32;       // input channels per K step
-constexpr int A_LD = KC + 8;  // padded smem strides (multiples of 8 bf16)
-
-template <int BN>
-__global__ void __launch_bounds__(128) conv_wmma_kernel(ConvArgs p) {
-  constexpr int B_LD = BN + 8;
-  constexpr int C_LD = BN + 4;
-  constexpr int NF = BN / 16;
-  __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[KC * B_LD];
-  __shared__ __align__(128) float Cs[BM * C_LD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // Each thread gathers 16-byte pieces of two A rows: rows tid/4 and
-  // tid/4 + 32, piece tid%4 (8 channels) of the 32-channel slice.
-  const int part = tid & 3;
-  int rz[2], ry[2], rx[2];
-  long long rb[2];
-  bool rok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long vox = m0 + (tid >> 2) + 32 * i;
-    rok[i] = vox < p.nvox;
-    long long t = rok[i] ? vox : 0;
-    rx[i] = static_cast<int>(t % p.W); t /= p.W;
-    ry[i] = static_cast<int>(t % p.H); t /= p.H;
-    rz[i] = static_cast<int>(t % p.D);
-    rb[i] = t / p.D;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (int tap = 0; tap < 27; ++tap) {
-    const int dz = tap / 9 - 1, dy = (tap / 3) % 3 - 1, dx = tap % 3 - 1;
-    const __nv_bfloat16* src[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int z = rz[i] + dz, y = ry[i] + dy, x = rx[i] + dx;
-      const bool ok = rok[i] && z >= 0 && z < p.D && y >= 0 && y < p.H &&
-                      x >= 0 && x < p.W;
-      src[i] = ok ? p.x + ((((rb[i] * p.D + z) * p.H + y) * p.W + x) *
-                               p.cin + part * 8)
-                  : nullptr;
-    }
-    for (int k0 = 0; k0 < p.cin; k0 += KC) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        int4 v = make_int4(0, 0, 0, 0);
-        if (src[i] != nullptr) v = *reinterpret_cast<const int4*>(src[i] + k0);
-        *reinterpret_cast<int4*>(&As[((tid >> 2) + 32 * i) * A_LD + part * 8]) = v;
-      }
-      const __nv_bfloat16* wsrc =
-          p.w + (static_cast<long long>(tap) * p.cin + k0) * p.cout + n0;
-      for (int c = tid; c < KC * BN / 8; c += 128) {
-        const int r = c / (BN / 8), q = c % (BN / 8);
-        *reinterpret_cast<int4*>(&Bs[r * B_LD + q * 8]) =
-            *reinterpret_cast<const int4*>(wsrc + static_cast<long long>(r) * p.cout + q * 8);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, &As[(warp * 16) * A_LD + kk], A_LD);
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, &Bs[kk * B_LD + j * 16], B_LD);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < NF; ++j)
-    wmma::store_matrix_sync(&Cs[(warp * 16) * C_LD + j * 16], acc[j], C_LD,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += 128) {
-    const int r = i / BN, c = i % BN;
-    const long long vox = m0 + r;
-    if (vox < p.nvox) epilogue(p, vox, n0 + c, Cs[r * C_LD + c]);
-  }
+__device__ __forceinline__ void epilogue(const ConvArgs& p, long long vox,
+                                         int co, float acc) {
+  store_value(p, vox * p.cout + co, epilogue_value(p, vox, co, acc));
 }
+
+// ---------------------------------------------------------------------------
+// Tensor-core path: the shared wgmma mainloop (conv_wgmma.cuh), bf16 -> f32.
+// ---------------------------------------------------------------------------
+
+struct ThinOp {
+  using Acc = float;
+  using Args = ConvArgs;
+
+  // one m64nNk16 bf16 wgmma, A and B K-major in shared memory
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t a,
+                                             uint64_t b) {
+    if constexpr (N == 8) {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+          : CONVWG_ACC4("+f", d, 0)
+          : "l"(a), "l"(b), "r"(1));
+    } else if constexpr (N == 32) {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+          "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+          : CONVWG_ACC16("+f", d, 0)
+          : "l"(a), "l"(b), "r"(1));
+    } else {
+      static_assert(N == 64, "N is 8, 32 or 64");
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+          "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+          "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+          : CONVWG_ACC32("+f", d, 0)
+          : "l"(a), "l"(b), "r"(1));
+    }
+  }
+
+  // channels co .. co + n - 1 (n <= 8) of voxel vox, from the staged
+  // accumulators a; one vector store where all 8 are there and aligned
+  static __device__ __forceinline__ void store8(const ConvArgs& p, long long vox,
+                                                int co, const float* a, int n) {
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = e < n ? epilogue_value(p, vox, co + e, a[e]) : 0.0f;
+    const long long o = vox * p.cout + co;
+    if (n < 8 || (p.cout & 7) != 0) {
+      for (int e = 0; e < n; ++e) store_value(p, o + e, v[e]);
+    } else if (p.out_kind == OUT_I8) {
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        w[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(requant(p, v[e])))
+                     << (8 * (e & 3));
+      *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) =
+          make_uint2(w[0], w[1]);
+    } else if (p.out_kind == OUT_F32) {
+      float4* d = reinterpret_cast<float4*>(static_cast<float*>(p.out) + o);
+      d[0] = make_float4(v[0], v[1], v[2], v[3]);
+      d[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      __nv_bfloat162 h[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + o) =
+          *reinterpret_cast<const uint4*>(h);
+    }
+  }
+};
 
 // ---------------------------------------------------------------------------
 // CUDA-core direct conv for thin channel counts.
@@ -265,9 +255,15 @@ __global__ void __launch_bounds__(128) conv_direct_kernel(ConvArgs p) {
     }
   }
   if (!active) return;
+  if (CO % 8 == 0 && co0 + CO <= p.cout) {
+    // whole runs of 8 channels: one vector store each (the stem)
 #pragma unroll
-  for (int j = 0; j < CO; ++j)
-    if (co0 + j < p.cout) epilogue(p, vox, co0 + j, acc[j]);
+    for (int j = 0; j < CO; j += 8) ThinOp::store8(p, vox, co0 + j, acc + j, 8);
+  } else {
+#pragma unroll
+    for (int j = 0; j < CO; ++j)
+      if (co0 + j < p.cout) epilogue(p, vox, co0 + j, acc[j]);
+  }
 }
 
 template <int CO>
@@ -276,20 +272,10 @@ void launch_direct(const ConvArgs& p, cudaStream_t s) {
   conv_direct_kernel<CO><<<grid, 128, 0, s>>>(p);
 }
 
-}  // namespace
-
-extern "C" {
-
-// 1 when (cin, cout) takes the tensor-core path, 0 for the direct path.
-int thin_conv3d_uses_tensor_cores(int cin, int cout) {
-  return (cin % KC == 0 && cout % 32 == 0) ? 1 : 0;
-}
-
-int thin_conv3d_launch(const void* x, const void* w, const void* bias,
-                       void* out, int B, int D, int H, int W, int cin,
-                       int cout, int act, float alpha, int residual,
-                       float res_alpha, int out_kind, float inv_sa,
-                       void* stream) {
+ConvArgs make_args(const void* x, const void* w, const void* bias, void* out,
+                   int B, int D, int H, int W, int cin, int cout, int act,
+                   float alpha, int residual, float res_alpha, int out_kind,
+                   float inv_sa) {
   ConvArgs p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.w = static_cast<const __nv_bfloat16*>(w);
@@ -300,15 +286,34 @@ int thin_conv3d_launch(const void* x, const void* w, const void* bias,
   p.act = act; p.alpha = alpha;
   p.residual = residual; p.res_alpha = res_alpha;
   p.out_kind = out_kind; p.inv_sa = inv_sa;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// 1 when (cin, cout) takes the tensor-core (wgmma) path, 0 for the direct
+// path.
+int thin_conv3d_uses_tensor_cores(int cin, int cout) {
+  return (cin % 32 == 0 && cout >= 1) ? 1 : 0;
+}
+
+// The direct path, w as [3, 3, 3, cin, cout]. A tensor-core site is
+// refused (cudaErrorInvalidValue): it needs its plan and packed weights,
+// thin_conv3d_launch_wgmma.
+int thin_conv3d_launch(const void* x, const void* w, const void* bias,
+                       void* out, int B, int D, int H, int W, int cin,
+                       int cout, int act, float alpha, int residual,
+                       float res_alpha, int out_kind, float inv_sa,
+                       void* stream) {
+  const ConvArgs p = make_args(x, w, bias, out, B, D, H, W, cin, cout, act,
+                               alpha, residual, res_alpha, out_kind, inv_sa);
   if (p.nvox == 0) return 0;
+  if (thin_conv3d_uses_tensor_cores(cin, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (thin_conv3d_uses_tensor_cores(cin, cout)) {
-    const unsigned gm = static_cast<unsigned>((p.nvox + BM - 1) / BM);
-    if (cout % 64 == 0)
-      conv_wmma_kernel<64><<<dim3(gm, cout / 64), 128, 0, s>>>(p);
-    else
-      conv_wmma_kernel<32><<<dim3(gm, cout / 32), 128, 0, s>>>(p);
-  } else if (cout >= 16) {
+  if (cout >= 16) {
     launch_direct<16>(p, s);
   } else if (cout > 4) {
     launch_direct<8>(p, s);
@@ -320,6 +325,22 @@ int thin_conv3d_launch(const void* x, const void* w, const void* bias,
     launch_direct<1>(p, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core path: wp is the weights packed by ops/conv_plan.py
+// (pack_weights), plan its int32 plan (PLAN_LEN entries, host memory).
+int thin_conv3d_launch_wgmma(const void* x, const void* wp, const void* bias,
+                             void* out, int B, int D, int H, int W, int cin,
+                             int cout, int act, float alpha, int residual,
+                             float res_alpha, int out_kind, float inv_sa,
+                             const int* plan, void* stream) {
+  const ConvArgs p = make_args(x, wp, bias, out, B, D, H, W, cin, cout, act,
+                               alpha, residual, res_alpha, out_kind, inv_sa);
+  if (p.nvox == 0) return 0;
+  if (!thin_conv3d_uses_tensor_cores(cin, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return convwg::launch<ThinOp>(x, wp, p, B, D, H, W, cin * 2, cout, plan,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

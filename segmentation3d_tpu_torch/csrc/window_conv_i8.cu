@@ -25,21 +25,22 @@
 // the 64..256-channel ones are compute-bound; the 32 -> 2 head does ~100
 // and is memory-bound.
 //
-// What the design does about it (a first, simple version; no TMA, wgmma or
-// pipelined K loop yet):
-// - wide sites (cin % 32 == 0 and cout % 32 == 0): an implicit GEMM on the
-//   int8 tensor cores (WMMA s8 16x16x16, int32 accumulators). A block owns
-//   64 output voxels x 32 or 64 output channels; the K loop walks 27 taps x
-//   32-channel slices, gathering each voxel's 32-byte shifted input row with
-//   two 16-byte loads (zeros outside the volume) and the weight slice into
-//   shared memory.
-// - thin sites (anything else, e.g. the head): a direct conv on the CUDA
+// What the design does about it:
+// - wide sites (cin % 32 == 0, any cout): an implicit GEMM on wgmma
+//   (m64nNk32 s8 -> s32, N = 8, 32 or 64 output channels per block), the
+//   shared mainloop of conv_wgmma.cuh: the output box's input halo comes
+//   into shared memory once per 32-channel slice by TMA, and the 27 taps are
+//   descriptor offsets into it; the weights, repacked K-major by the wrapper
+//   (s8 wgmma takes only K-major operands), come by bulk copy through a ring
+//   of mbarrier-tracked stages. The 32 -> 2 head runs here too, N padded to
+//   8: it is bound by its bytes.
+// - thin sites (cin not a multiple of 32): a direct conv on the CUDA
 //   cores, one thread per output voxel x up to 16 output channels, with
 //   __dp4a (4 exact int8 multiply-adds per instruction) on 4 packed input
-//   channels; weights staged in shared memory as packed words. No channel
-//   is padded: a cout = 2 head computes 2 channels.
-// - the epilogue runs on the int32 accumulators and writes the output once;
-//   no f32 intermediate reaches device memory.
+//   channels; weights staged in shared memory as packed words.
+// - the epilogue runs on the int32 accumulators in registers and writes the
+//   output once, two adjacent channels per store; no f32 intermediate
+//   reaches device memory.
 // The TPU kernel's 128-lane packing, its y-tiling and its row gather exist
 // only for the TPU and are not copied.
 //
@@ -48,12 +49,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-namespace {
+#include "conv_wgmma.cuh"
 
-using namespace nvcuda;
+namespace {
 
 enum { ACT_NONE = 0, ACT_RELU = 1, ACT_PRELU = 2 };
 enum { OUT_BF16 = 0, OUT_F32 = 1, OUT_I8 = 2 };
@@ -82,19 +82,29 @@ __device__ __forceinline__ float activate(float v, int kind, float a) {
   return v;
 }
 
-__device__ __forceinline__ void epilogue(const Args& p, long long vox, int co,
-                                         int acc) {
+// acc: the int32 conv sum for (vox, co); returns the value before the
+// output conversion.
+__device__ __forceinline__ float epilogue_value(const Args& p, long long vox,
+                                                int co, int acc) {
   float a = __fadd_rn(__fmul_rn(__int2float_rn(acc), p.scale[co]), p.bias[co]);
   a = activate(a, p.act, p.alpha);
-  const long long o = vox * p.cout + co;
   if (p.identity != nullptr) {
-    const float id = __int2float_rn(static_cast<int>(p.identity[o]));
+    const float id =
+        __int2float_rn(static_cast<int>(p.identity[vox * p.cout + co]));
     a = activate(__fadd_rn(__fmul_rn(id, p.s_id), a), p.res_act, p.res_alpha);
   }
+  return a;
+}
+
+__device__ __forceinline__ int8_t requant(const Args& p, float a) {
+  float q = rintf(__fmul_rn(a, p.inv_out));
+  q = fminf(fmaxf(q, -127.0f), 127.0f);
+  return static_cast<int8_t>(q);
+}
+
+__device__ __forceinline__ void store_value(const Args& p, long long o, float a) {
   if (p.out_kind == OUT_I8) {
-    float q = rintf(__fmul_rn(a, p.inv_out));
-    q = fminf(fmaxf(q, -127.0f), 127.0f);
-    static_cast<int8_t*>(p.out)[o] = static_cast<int8_t>(q);
+    static_cast<int8_t*>(p.out)[o] = requant(p, a);
   } else if (p.out_kind == OUT_F32) {
     static_cast<float*>(p.out)[o] = a;
   } else {
@@ -102,91 +112,83 @@ __device__ __forceinline__ void epilogue(const Args& p, long long vox, int co,
   }
 }
 
+__device__ __forceinline__ void epilogue(const Args& p, long long vox, int co,
+                                         int acc) {
+  store_value(p, vox * p.cout + co, epilogue_value(p, vox, co, acc));
+}
+
 // ---------------------------------------------------------------------------
-// Tensor-core implicit GEMM: M = voxels, N = cout, K = 27 * cin.
+// Tensor-core path: the shared wgmma mainloop (conv_wgmma.cuh), s8 -> s32.
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64;  // output voxels per block (4 warps x 16 rows)
-constexpr int KC = 32;  // input channels per K step (two WMMA k-slices)
+struct I8Op {
+  using Acc = int;
+  using Args = ::Args;
 
-// Shared tiles are kept as 16-byte-wide slices ([slice][row][16]) so that
-// every WMMA fragment starts on a 32-byte boundary, as load_matrix_sync
-// requires: A as two k-halves of [BM][16], B as BN/16 column blocks of
-// [KC][16].
-template <int BN>
-__global__ void __launch_bounds__(128) conv_i8_wmma_kernel(Args p) {
-  constexpr int NF = BN / 16;
-  constexpr int C_LD = BN + 4;
-  __shared__ __align__(128) signed char As[2 * BM * 16];
-  __shared__ __align__(128) signed char Bs[NF * KC * 16];
-  __shared__ __align__(128) int Cs[BM * C_LD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // Each thread gathers one 16-byte half (tid & 1) of row tid / 2's
-  // 32-channel slice.
-  const int row = tid >> 1, half = tid & 1;
-  const long long vox = m0 + row;
-  const bool rok = vox < p.nvox;
-  long long t = rok ? vox : 0;
-  const int rx = static_cast<int>(t % p.W); t /= p.W;
-  const int ry = static_cast<int>(t % p.H); t /= p.H;
-  const int rz = static_cast<int>(t % p.D);
-  const long long rb = t / p.D;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0);
-
-  for (int tap = 0; tap < 27; ++tap) {
-    const int dz = tap / 9 - 1, dy = (tap / 3) % 3 - 1, dx = tap % 3 - 1;
-    const int z = rz + dz, y = ry + dy, x = rx + dx;
-    const bool ok = rok && z >= 0 && z < p.D && y >= 0 && y < p.H &&
-                    x >= 0 && x < p.W;
-    const int8_t* src =
-        ok ? p.x + ((((rb * p.D + z) * p.H + y) * p.W + x) * p.cin + half * 16)
-           : nullptr;
-    for (int k0 = 0; k0 < p.cin; k0 += KC) {
-      int4 v = make_int4(0, 0, 0, 0);
-      if (src != nullptr) v = *reinterpret_cast<const int4*>(src + k0);
-      *reinterpret_cast<int4*>(&As[(half * BM + row) * 16]) = v;
-      const int8_t* wsrc =
-          p.w + (static_cast<long long>(tap) * p.cin + k0) * p.cout + n0;
-      for (int c = tid; c < NF * KC; c += 128) {
-        const int q = c / KC, r = c % KC;
-        *reinterpret_cast<int4*>(&Bs[(q * KC + r) * 16]) =
-            *reinterpret_cast<const int4*>(wsrc + static_cast<long long>(r) * p.cout + q * 16);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
-        wmma::load_matrix_sync(a, &As[(kk * BM + warp * 16) * 16], 16);
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> b;
-          wmma::load_matrix_sync(b, &Bs[(j * KC + kk * 16) * 16], 16);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
+  // one m64nNk32 s8 wgmma, A and B K-major in shared memory
+  template <int N>
+  static __device__ __forceinline__ void mma(int (&d)[N / 2], uint64_t a,
+                                             uint64_t b) {
+    if constexpr (N == 8) {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+          "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+          : CONVWG_ACC4("+r", d, 0)
+          : "l"(a), "l"(b), "r"(1));
+    } else if constexpr (N == 32) {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+          "%15}, %16, %17, p;\n}\n"
+          : CONVWG_ACC16("+r", d, 0)
+          : "l"(a), "l"(b), "r"(1));
+    } else {
+      static_assert(N == 64, "N is 8, 32 or 64");
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+          "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+          "%28, %29, %30, %31}, %32, %33, p;\n}\n"
+          : CONVWG_ACC32("+r", d, 0)
+          : "l"(a), "l"(b), "r"(1));
     }
   }
 
+  // channels co .. co + n - 1 (n <= 8) of voxel vox, from the staged
+  // accumulators a; one vector store where all 8 are there and aligned
+  static __device__ __forceinline__ void store8(const Args& p, long long vox,
+                                                int co, const int* a, int n) {
+    float v[8];
 #pragma unroll
-  for (int j = 0; j < NF; ++j)
-    wmma::store_matrix_sync(&Cs[(warp * 16) * C_LD + j * 16], acc[j], C_LD,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += 128) {
-    const int r = i / BN, c = i % BN;
-    const long long v = m0 + r;
-    if (v < p.nvox) epilogue(p, v, n0 + c, Cs[r * C_LD + c]);
+    for (int e = 0; e < 8; ++e)
+      v[e] = e < n ? epilogue_value(p, vox, co + e, a[e]) : 0.0f;
+    const long long o = vox * p.cout + co;
+    if (n < 8 || (p.cout & 7) != 0) {
+      for (int e = 0; e < n; ++e) store_value(p, o + e, v[e]);
+    } else if (p.out_kind == OUT_I8) {
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        w[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(requant(p, v[e])))
+                     << (8 * (e & 3));
+      *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) =
+          make_uint2(w[0], w[1]);
+    } else if (p.out_kind == OUT_F32) {
+      float4* d = reinterpret_cast<float4*>(static_cast<float*>(p.out) + o);
+      d[0] = make_float4(v[0], v[1], v[2], v[3]);
+      d[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      __nv_bfloat162 h[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + o) =
+          *reinterpret_cast<const uint4*>(h);
+    }
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // CUDA-core direct conv (__dp4a) for thin channel counts.
@@ -292,21 +294,11 @@ void launch_direct(const Args& p, cudaStream_t s) {
   conv_i8_direct_kernel<CO><<<grid, 128, 0, s>>>(p);
 }
 
-}  // namespace
-
-extern "C" {
-
-// 1 when (cin, cout) takes the tensor-core path, 0 for the direct path.
-int window_conv_i8_uses_tensor_cores(int cin, int cout) {
-  return (cin % KC == 0 && cout % 32 == 0) ? 1 : 0;
-}
-
-int window_conv_i8_launch(const void* x, const void* w, const void* scale,
-                          const void* bias, const void* identity, void* out,
-                          int B, int D, int H, int W, int cin, int cout,
-                          int act, float alpha, int res_act, float res_alpha,
-                          float s_id, int out_kind, float inv_out,
-                          void* stream) {
+Args make_args(const void* x, const void* w, const void* scale,
+               const void* bias, const void* identity, void* out, int B, int D,
+               int H, int W, int cin, int cout, int act, float alpha,
+               int res_act, float res_alpha, float s_id, int out_kind,
+               float inv_out) {
   Args p;
   p.x = static_cast<const int8_t*>(x);
   p.w = static_cast<const int8_t*>(w);
@@ -319,15 +311,36 @@ int window_conv_i8_launch(const void* x, const void* w, const void* scale,
   p.act = act; p.alpha = alpha;
   p.res_act = res_act; p.res_alpha = res_alpha; p.s_id = s_id;
   p.out_kind = out_kind; p.inv_out = inv_out;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// 1 when (cin, cout) takes the tensor-core (wgmma) path, 0 for the direct
+// path.
+int window_conv_i8_uses_tensor_cores(int cin, int cout) {
+  return (cin % 32 == 0 && cout >= 1) ? 1 : 0;
+}
+
+// The direct path, w as [3, 3, 3, cin, cout]. A tensor-core site is
+// refused (cudaErrorInvalidValue): it needs its plan and packed weights,
+// window_conv_i8_launch_wgmma.
+int window_conv_i8_launch(const void* x, const void* w, const void* scale,
+                          const void* bias, const void* identity, void* out,
+                          int B, int D, int H, int W, int cin, int cout,
+                          int act, float alpha, int res_act, float res_alpha,
+                          float s_id, int out_kind, float inv_out,
+                          void* stream) {
+  const Args p = make_args(x, w, scale, bias, identity, out, B, D, H, W, cin,
+                           cout, act, alpha, res_act, res_alpha, s_id,
+                           out_kind, inv_out);
   if (p.nvox == 0) return 0;
+  if (window_conv_i8_uses_tensor_cores(cin, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (window_conv_i8_uses_tensor_cores(cin, cout)) {
-    const unsigned gm = static_cast<unsigned>((p.nvox + BM - 1) / BM);
-    if (cout % 64 == 0)
-      conv_i8_wmma_kernel<64><<<dim3(gm, cout / 64), 128, 0, s>>>(p);
-    else
-      conv_i8_wmma_kernel<32><<<dim3(gm, cout / 32), 128, 0, s>>>(p);
-  } else if (cout >= 16) {
+  if (cout >= 16) {
     launch_direct<16>(p, s);
   } else if (cout > 4) {
     launch_direct<8>(p, s);
@@ -339,6 +352,24 @@ int window_conv_i8_launch(const void* x, const void* w, const void* scale,
     launch_direct<1>(p, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core path: wp is the weights packed by ops/conv_plan.py
+// (pack_weights), plan its int32 plan (PLAN_LEN entries, host memory).
+int window_conv_i8_launch_wgmma(const void* x, const void* wp, const void* scale,
+                                const void* bias, const void* identity,
+                                void* out, int B, int D, int H, int W, int cin,
+                                int cout, int act, float alpha, int res_act,
+                                float res_alpha, float s_id, int out_kind,
+                                float inv_out, const int* plan, void* stream) {
+  const Args p = make_args(x, wp, scale, bias, identity, out, B, D, H, W, cin,
+                           cout, act, alpha, res_act, res_alpha, s_id,
+                           out_kind, inv_out);
+  if (p.nvox == 0) return 0;
+  if (!window_conv_i8_uses_tensor_cores(cin, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return convwg::launch<I8Op>(x, wp, p, B, D, H, W, cin, cout, plan,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -6,9 +6,11 @@ channels-last ``[B, D, H, W, Cin]`` with ``w`` as ``[3, 3, 3, Cin, Cout]``:
 bf16 operands, f32 accumulation, f32 epilogue, bf16 / f32 / int8 output.
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/thin_conv3d.cu`` (built with ``nvcc`` at first use into ``build/``
-and loaded with ``ctypes``, :mod:`.cuda_build`) or raises; on a CPU tensor
-it runs :func:`thin_conv3d_reference`, the plain PyTorch version of the
-same function. :func:`fold_bn_np` folds inference BatchNorm into the conv.
+and loaded with ``ctypes``, :mod:`.cuda_build`) or raises: sites with
+``Cin % 32 == 0`` take its wgmma path, with the geometry planned and the
+weights repacked by :mod:`.conv_plan`, the others its direct path. On a
+CPU tensor it runs :func:`thin_conv3d_reference`, the plain PyTorch
+version of the same function. :func:`fold_bn_np` folds inference BatchNorm into the conv.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from segmentation3d_tpu_torch.ops.conv_plan import (
+    pack_weights, plan_conv, uses_tensor_cores)
 from segmentation3d_tpu_torch.ops.cuda_build import load_library
 from segmentation3d_tpu_torch.utils.device import no_tf32
 
@@ -47,6 +51,9 @@ def _lib():
         lib.thin_conv3d_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                            i, f, i, f, i, f, p]
         lib.thin_conv3d_launch.restype = i
+        lib.thin_conv3d_launch_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                                 i, f, i, f, i, f, p, p]
+        lib.thin_conv3d_launch_wgmma.restype = i
         lib.thin_conv3d_uses_tensor_cores.argtypes = [i, i]
         lib.thin_conv3d_uses_tensor_cores.restype = i
         lib._bound = True
@@ -55,8 +62,8 @@ def _lib():
 
 def kernel_path(cin: int, cout: int) -> str:
     """Which of the kernel's two paths a (cin, cout) site takes:
-    ``"tensor_cores"`` (implicit GEMM) or ``"direct"`` (CUDA cores), as the
-    built kernel decides it."""
+    ``"tensor_cores"`` (wgmma implicit GEMM) or ``"direct"`` (CUDA cores),
+    as the built kernel decides it."""
     return "tensor_cores" if _lib().thin_conv3d_uses_tensor_cores(cin, cout) \
         else "direct"
 
@@ -145,13 +152,20 @@ def thin_conv3d(x, w, b=None, act: str = "none", alpha: float = 0.25,
     if B * D * H * W >= 2 ** 31 * 64:
         raise ValueError(f"volume of {B * D * H * W} voxels is too large")
     out = torch.empty((B, D, H, W, cout), device=x.device, dtype=out_dtype)
+    args = (_ACTS[act], float(alpha), _ACTS[residual], float(res_alpha),
+            _OUT_KINDS[out_dtype], float(quant_inv_sa or 0.0))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().thin_conv3d_launch(
-            xq.data_ptr(), wq.data_ptr(), bq.data_ptr(), out.data_ptr(),
-            B, D, H, W, cin, cout, _ACTS[act], float(alpha),
-            _ACTS[residual], float(res_alpha), _OUT_KINDS[out_dtype],
-            float(quant_inv_sa or 0.0), stream)
+        if uses_tensor_cores(cin, cout):
+            plan = plan_conv(B, D, H, W, cin, cout, 2)
+            wp, arr = pack_weights(wq, plan), plan.as_array()
+            err = _lib().thin_conv3d_launch_wgmma(
+                xq.data_ptr(), wp.data_ptr(), bq.data_ptr(), out.data_ptr(),
+                B, D, H, W, cin, cout, *args, arr.ctypes.data, stream)
+        else:
+            err = _lib().thin_conv3d_launch(
+                xq.data_ptr(), wq.data_ptr(), bq.data_ptr(), out.data_ptr(),
+                B, D, H, W, cin, cout, *args, stream)
     if err != 0:
         raise RuntimeError(f"thin_conv3d kernel launch failed: CUDA error {err}")
     thin_conv3d.launches += 1

@@ -13,8 +13,10 @@ with ``w`` as ``[3, 3, 3, Cin, Cout]`` int8, in this value order:
 
 The TPU kernel's packed ``[B, D, H, cols, P*C]`` input is byte-identical to
 this NDHWC tensor; its lane packing and y-tiling are not copied. On a CUDA
-tensor it launches ``csrc/window_conv_i8.cu`` or raises; on a CPU tensor it
-runs :func:`window_conv_i8_reference`, the plain PyTorch version.
+tensor it launches ``csrc/window_conv_i8.cu`` or raises (sites with
+``Cin % 32 == 0`` take its wgmma path, planned and with the weights
+repacked by :mod:`.conv_plan`, the others its direct path); on a CPU
+tensor it runs :func:`window_conv_i8_reference`, the plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from segmentation3d_tpu_torch.ops.conv_plan import (
+    pack_weights, plan_conv, uses_tensor_cores)
 from segmentation3d_tpu_torch.ops.cuda_build import load_library
 from segmentation3d_tpu_torch.ops.quant import f32, requant
 from segmentation3d_tpu_torch.ops.thin_conv import activation
@@ -39,6 +43,9 @@ def _lib():
         lib.window_conv_i8_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                               i, i, f, i, f, f, i, f, p]
         lib.window_conv_i8_launch.restype = i
+        lib.window_conv_i8_launch_wgmma.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, f, f, i, f, p, p]
+        lib.window_conv_i8_launch_wgmma.restype = i
         lib.window_conv_i8_uses_tensor_cores.argtypes = [i, i]
         lib.window_conv_i8_uses_tensor_cores.restype = i
         lib._bound = True
@@ -46,8 +53,8 @@ def _lib():
 
 
 def kernel_path(cin: int, cout: int) -> str:
-    """``"tensor_cores"`` (implicit GEMM) or ``"direct"`` (``__dp4a``), as
-    the built kernel decides it for a (cin, cout) site."""
+    """``"tensor_cores"`` (wgmma implicit GEMM) or ``"direct"``
+    (``__dp4a``), as the built kernel decides it for a (cin, cout) site."""
     return "tensor_cores" if _lib().window_conv_i8_uses_tensor_cores(cin, cout) \
         else "direct"
 
@@ -125,14 +132,22 @@ def window_conv_i8(x, w, scale, bias, act="relu", alpha=0.25, *, out="int8",
         raise ValueError(f"volume of {B * D * H * W} voxels is too large")
     kind, dtype = _OUTS[out]
     res = torch.empty((B, D, H, W, cout), device=x.device, dtype=dtype)
+    args = (B, D, H, W, cin, cout, _ACTS[act], f32(alpha),
+            _ACTS[res_act] if idq is not None else 0, f32(res_alpha),
+            f32(s_id or 0.0), kind, f32(inv_out or 0.0))
+    ptrs = (sq.data_ptr(), bq.data_ptr(),
+            idq.data_ptr() if idq is not None else None, res.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().window_conv_i8_launch(
-            xq.data_ptr(), wq.data_ptr(), sq.data_ptr(), bq.data_ptr(),
-            idq.data_ptr() if idq is not None else None, res.data_ptr(),
-            B, D, H, W, cin, cout, _ACTS[act], f32(alpha),
-            _ACTS[res_act] if idq is not None else 0, f32(res_alpha),
-            f32(s_id or 0.0), kind, f32(inv_out or 0.0), stream)
+        if uses_tensor_cores(cin, cout):
+            plan = plan_conv(B, D, H, W, cin, cout, 1)
+            wp, arr = pack_weights(wq, plan), plan.as_array()
+            err = _lib().window_conv_i8_launch_wgmma(
+                xq.data_ptr(), wp.data_ptr(), *ptrs, *args, arr.ctypes.data,
+                stream)
+        else:
+            err = _lib().window_conv_i8_launch(
+                xq.data_ptr(), wq.data_ptr(), *ptrs, *args, stream)
     if err != 0:
         raise RuntimeError(f"window_conv_i8 kernel launch failed: CUDA error {err}")
     window_conv_i8.launches += 1

@@ -15,6 +15,8 @@ window_conv_i8 sums int8 products in int32, exactly, and runs the plain
 version's float32 epilogue op for op: its int8 outputs must be exactly
 equal, its bf16 / f32 outputs too (one bf16 step is allowed).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ import torch
 from segmentation3d_tpu_torch.models.fused_vnet import build_fused_forward
 from segmentation3d_tpu_torch.models.quant_vnet import build_int8_forward
 from segmentation3d_tpu_torch.models.vnet import SegmentationNet
+from segmentation3d_tpu_torch.ops import conv_plan
 from segmentation3d_tpu_torch.ops import thin_conv as tc
 from segmentation3d_tpu_torch.ops import window_i8 as wi
 
@@ -67,6 +70,55 @@ def test_kernel_matches_plain(cuda_device, cin, cout, residual, out):
         assert (got == ref).float().mean().item() > 0.99
     else:
         assert err <= 0.05 * ref.float().abs().max().item()
+
+
+# wgmma path: several K slices, N split across blocks, ragged boxes in x,
+# y and z (W = 7 or 13 is not a multiple of the 8-voxel box)
+WIDE_RAGGED = [
+    (96, 96, (2, 6, 10, 12)), (64, 128, (2, 6, 10, 12)),
+    (32, 2, (2, 5, 9, 7)), (32, 2, (1, 11, 6, 13)), (32, 32, (1, 9, 13, 7)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,shape", WIDE_RAGGED)
+def test_kernel_wide_ragged_matches_plain(cuda_device, cin, cout, shape):
+    x, w, b = _inputs(cin, cout, cin + 3 * cout, shape, cuda_device)
+    for out in ("bf16", "int8"):
+        q = 20.0 if out == "int8" else None
+        kw = dict(act="relu", out_dtype=_TDT[out], quant_inv_sa=q,
+                  residual="relu" if cin == cout else "none")
+        assert tc.kernel_path(cin, cout) == "tensor_cores"
+        got = tc.thin_conv3d(x, w, b, **kw)
+        ref = tc.thin_conv3d_reference(x, w, b, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        if out == "int8":
+            assert err <= 1
+            assert (got == ref).float().mean().item() > 0.99
+        else:
+            assert err <= 0.05 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [1, 2])
+def test_ring_depths_match_plain(cuda_device, monkeypatch, stages):
+    """A ring of 1 or 2 stages over several K slices (bf16 64 -> 64: 8
+    slices; int8 128 -> 64: 4): the slot is handed back to the producer
+    only once its slice's wgmma are done."""
+    plan = functools.partial(conv_plan.plan_conv, max_stages=stages)
+    monkeypatch.setattr(tc, "plan_conv", plan)
+    monkeypatch.setattr(wi, "plan_conv", plan)
+    x, w, b = _inputs(64, 64, 5, (2, 6, 10, 12), cuda_device)
+    got = tc.thin_conv3d(x, w, b, act="relu")
+    ref = tc.thin_conv3d_reference(x, w, b, act="relu")
+    xi, wq, s, bi, _ = _i8_inputs(128, 64, 6, (2, 6, 10, 12), cuda_device, False)
+    got_i8 = wi.window_conv_i8(xi, wq, s, bi, "relu", inv_out=127.0 / 6.0)
+    ref_i8 = wi.window_conv_i8_reference(xi, wq, s, bi, "relu", inv_out=127.0 / 6.0)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= \
+        0.05 * ref.float().abs().max().item()
+    assert torch.equal(got_i8, ref_i8)
 
 
 @pytest.mark.cuda
@@ -133,6 +185,27 @@ def test_window_conv_i8_matches_plain(cuda_device, cin, cout, act, tail, out):
         assert 0.05 < (got != 0).float().mean().item()  # not all saturated / zero
     else:
         torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -8, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,shape", WIDE_RAGGED)
+def test_window_conv_i8_wide_ragged_matches_plain(cuda_device, cin, cout, shape):
+    tail = cin == cout
+    x, w, s, b, ident = _i8_inputs(cin, cout, cin * 5 + cout, shape, cuda_device,
+                                   tail)
+    assert wi.kernel_path(cin, cout) == "tensor_cores"
+    for out in ("int8", "bf16"):
+        kw = dict(out=out, inv_out=127.0 / 6.0 if out == "int8" else None,
+                  identity=ident, s_id=5.0 / 127.0 if tail else None,
+                  res_act="relu" if tail else "none")
+        got = wi.window_conv_i8(x, w, s, b, "relu", **kw)
+        ref = wi.window_conv_i8_reference(x, w, s, b, "relu", **kw)
+        torch.cuda.synchronize()
+        if out == "int8":
+            assert torch.equal(got, ref)
+            assert 0.05 < (got != 0).float().mean().item()
+        else:
+            torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -8, atol=0)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ NVIDIA GPU:
    parallel;
 3. kernels: holds ``thin_conv3d`` against its plain PyTorch version at every
    conv site of the bf16 V-Net forward (96^3 patches, batch 8, full width)
-   and at the int8 forward's stem, and ``window_conv_i8`` against its plain
+   and at the int8 forward's stem, at the coarse-to-fine coarse pass's sites
+   (batch 1) and on a flipped batch, and ``window_conv_i8`` against its plain
    version at every int8 3^3 site of the int8 forward (int8 outputs must be
    exactly equal), each kernel also at one ragged wide site
    ([8, 37, 50, 61, 32] -> 32); times each kernel, its plain version, a
@@ -24,7 +25,21 @@ NVIDIA GPU:
    limits;
 5. int8 main path: ``seg_infer --int8`` on the same case and net, counting
    both kernels' launches, then ``--int8`` and ``--int8 --int8_calib`` held
-   against the float32 run as in 4.
+   against the float32 run as in 4;
+6. pipeline: ``--bf16`` over a folder of three cases (the main case, a
+   second seed, a 512x512x160 case) through the pipelined case loop; the
+   main case's mask must equal 4's, and volumes/min over the batch is
+   printed beside the single case's;
+7. ensemble: ``-m a -m b --bf16`` against the float32 ensemble, and
+   ``-m a -m a`` against 4's mask;
+8. tta: ``--bf16 --tta all`` against float32 ``--tta all``;
+9. c2f: ``--fine_model`` with a seeded 4 mm coarse net, ``--bf16`` and
+   ``--int8`` against float32;
+10. vbnet: a seeded full-width VB-Net, ``--bf16`` (the nn.Module, no kernel
+   launch) against float32.
+
+Every path's kernel launches are counted from zero around its run and
+checked against its batches.
 
 Each phase prints one JSON line; any failed check exits nonzero. The last
 lines are the kernel summary, and ``{"ok": true, "device": ...}``.
@@ -91,15 +106,15 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def launch_plan(path, dims, cin, cout, elem_bytes):
+def launch_plan(path, dims, cin, cout, elem_bytes, batch=BATCH):
     """The kernel line's design and launch plan: box, stages, shared bytes
     and blocks of the wgmma path (``ops/conv_plan.py``), or the direct
     path's one thread per voxel."""
     from segmentation3d_tpu_torch.ops.conv_plan import plan_conv
     if path == "tensor_cores":
         return dict(design="wgmma",
-                    plan=plan_conv(BATCH, *dims, cin, cout, elem_bytes).summary())
-    vox = BATCH * dims[0] * dims[1] * dims[2]
+                    plan=plan_conv(batch, *dims, cin, cout, elem_bytes).summary())
+    vox = batch * dims[0] * dims[1] * dims[2]
     return dict(design="direct", plan=dict(threads_per_block=128,
                                            blocks=-(-vox // 128)))
 
@@ -126,7 +141,8 @@ def site_list():
 
 def phase_kernels(torch, tc):
     """Kernel vs plain version at the main path's site shapes, plus the
-    epilogue variants (prelu, f32 out, int8 out)."""
+    epilogue variants (prelu, f32 out, int8 out), the coarse-to-fine coarse
+    pass's sites (one 96^3 grid at batch 1) and a flipped batch (TTA)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
@@ -145,12 +161,22 @@ def phase_kernels(torch, tc):
         # the int8 forward's stem: full-precision patch in, int8 out
         dict(name="stem int8 out", size=PATCH, cin=1, cout=16, act="relu",
              residual="none", out=torch.int8, per_forward=0),
+        # a batch flipped in z and x, as --tta feeds the forward
+        dict(name="up_32.res flipped (TTA)", size=PATCH, cin=32, cout=32,
+             act="relu", residual="relu", out=torch.bfloat16, per_forward=0,
+             flip=(1, 3)),
     ]
+    cases += [dict(name=f"coarse {n}", size=sz, cin=ci, cout=co, act="relu",
+                   residual="relu" if res else "none", out=torch.bfloat16,
+                   per_forward=0, batch=1, per_coarse_forward=k)
+              for n, sz, ci, co, res, k in site_list()]
     results = []
     for c in cases:
         dims = c.get("dims") or (c["size"],) * 3
-        s, ci, co = max(dims), c["cin"], c["cout"]
-        x = torch.randn(BATCH, *dims, ci, device=dev, generator=g)
+        s, ci, co, nb = max(dims), c["cin"], c["cout"], c.get("batch", BATCH)
+        x = torch.randn(nb, *dims, ci, device=dev, generator=g)
+        if c.get("flip"):
+            x = torch.flip(x, c["flip"])
         x = x.to(torch.bfloat16)
         w = (torch.randn(3, 3, 3, ci, co, device=dev, generator=g)
              * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
@@ -187,20 +213,21 @@ def phase_kernels(torch, tc):
                 return torch.clamp(torch.round(o.float() * q), -127, 127).to(torch.int8)
             return o.to(c["out"])
 
-        reps = 20 if s <= PATCH // 2 else 10
+        reps = 20 if s <= PATCH // 2 or nb == 1 else 10
         kernel_ms = cuda_ms(lambda: tc.thin_conv3d(x, w, b, **kw), reps)
         plain_ms = cuda_ms(lambda: tc.thin_conv3d_reference(x, w, b, **kw), 3)
         library_ms = cuda_ms(library, reps)
-        vox = BATCH * dims[0] * dims[1] * dims[2]
+        vox = nb * dims[0] * dims[1] * dims[2]
         out_bytes = {torch.bfloat16: 2, torch.float32: 4, torch.int8: 1}[c["out"]]
         nbytes = vox * ci * 2 + vox * co * out_bytes + 27 * ci * co * 2 + co * 4
         flops = 2 * 27 * ci * co * vox
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-        r = dict(site=c["name"], shape=[BATCH, *dims, ci], cout=co,
+        r = dict(site=c["name"], shape=[nb, *dims, ci], cout=co,
                  act=c["act"], residual=c["residual"],
                  out=str(c["out"]).replace("torch.", ""),
                  path=tc.kernel_path(ci, co), per_forward=c["per_forward"],
-                 **launch_plan(tc.kernel_path(ci, co), dims, ci, co, 2),
+                 per_coarse_forward=c.get("per_coarse_forward", 0),
+                 **launch_plan(tc.kernel_path(ci, co), dims, ci, co, 2, nb),
                  max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
                  plain_ms=plain_ms, library_ms=library_ms,
                  bound_ms=max(t_bytes, t_ops),
@@ -234,25 +261,26 @@ def phantom_hu(z, y, x, rng):
     return img
 
 
-def make_ct(path, seed=0):
-    """Write the phantom as a 512x512x240 int16 volume at 0.7x0.7x1.25 mm;
-    returns its voxels (z, y, x)."""
+def make_ct(path, seed=0, slices=240):
+    """Write the phantom as a 512x512x``slices`` int16 volume at
+    0.7x0.7x1.25 mm; returns its voxels (z, y, x)."""
     import numpy as np
     from segmentation3d_tpu_torch.io import Volume, write_image
     from segmentation3d_tpu_torch.ops.geometry import Frame
     sp = np.array([0.7, 0.7, 1.25])  # x, y, z
     z, y, x = ((np.arange(n) - n / 2) * d for n, d in
-               ((240, sp[2]), (512, sp[1]), (512, sp[0])))
+               ((slices, sp[2]), (512, sp[1]), (512, sp[0])))
     img = phantom_hu(z, y, x, np.random.default_rng(seed))
     write_image(Volume(img, Frame.identity(spacing=sp)), path)
     return img
 
 
-def seeded_vnet(torch, seed=0):
-    """Full-width V-Net (base 16, 1 -> 2 classes) with seeded weights and
-    non-trivial BatchNorm statistics, from an explicit torch.Generator."""
+def seeded_vnet(torch, seed=0, bottleneck=False):
+    """Full-width V-Net (base 16, 1 -> 2 classes; ``bottleneck``: VB-Net)
+    with seeded weights and non-trivial BatchNorm statistics, from an
+    explicit torch.Generator."""
     from segmentation3d_tpu_torch.models.vnet import SegmentationNet
-    net = SegmentationNet(in_channels=1, out_channels=2)
+    net = SegmentationNet(in_channels=1, out_channels=2, bottleneck=bottleneck)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, t in list(net.named_parameters()) + list(net.named_buffers()):
@@ -274,7 +302,25 @@ def seeded_vnet(torch, seed=0):
     return net
 
 
-def calibrate(torch, net, normalizer, seed=1):
+def coarse_patches(rng):
+    """The coarse-to-fine coarse pass's 96^3 grid at 4 mm over
+    :func:`make_ct`'s 512x512x240 volume (first voxel at (-179.2, -179.2,
+    -150) mm), as ``seg_infer`` pads it to its shape bucket: the phantom
+    inside the volume (90 x 90 x 75 voxels), the resampler's fill (0 HU)
+    beyond it; two noise draws. Returns ``(hu, fit, fg)`` for
+    :func:`calibrate`: every voxel fitted, the body (not the fill) as the
+    foreground."""
+    import numpy as np
+    g = np.arange(96) * 4.0
+    hu = np.stack([phantom_hu(g - 150.0, g - 179.2, g - 179.2, rng)
+                   for _ in range(2)])
+    pad = np.zeros(hu.shape, bool)
+    pad[:, 75:] = pad[:, :, 90:] = pad[:, :, :, 90:] = True
+    hu[pad] = 0
+    return hu, np.ones(hu.shape, bool), (hu > -500) & ~pad
+
+
+def calibrate(torch, net, normalizer, seed=1, patches=None):
     """Give ``net`` the BatchNorm statistics of two seeded 96^3 phantom
     patches at 1 mm (one inside the body, one across its edge), as training
     would leave them, and fit its head conv to the patches' soft tissue (HU
@@ -284,13 +330,22 @@ def calibrate(torch, net, normalizer, seed=1):
     leaves most voxels at one constant logit, so a mask check on it is
     vacuous; a random head biased to its median log-odds puts the decision
     boundary in the densest part of the body, where the int8 forward's own
-    rounding flips a few percent of the voxels."""
+    rounding flips a few percent of the voxels. ``patches``: a
+    ``(function of the seeded numpy Generator) -> (hu, fit, fg)`` giving
+    other patches, the voxels to fit at and the foreground instead
+    (:func:`coarse_patches`)."""
     import numpy as np
     import torch.nn.functional as F
     rng = np.random.default_rng(seed)
-    mm = np.arange(96) + 0.5
-    hu = np.stack([phantom_hu(mm - 48, mm - 60, mm + 20, rng),
-                   phantom_hu(mm - 48, mm + 40, mm - 48, rng)])
+    if patches is None:
+        mm = np.arange(96) + 0.5
+        hu = np.stack([phantom_hu(mm - 48, mm - 60, mm + 20, rng),
+                       phantom_hu(mm - 48, mm + 40, mm - 48, rng)])
+        # fitted on the body only, as air would pull a near-linear fit
+        # towards putting fat on the soft-tissue side
+        fit, fg = hu > -500, hu > -30
+    else:
+        hu, fit, fg = patches(rng)
     x = normalizer(torch.from_numpy(hu))[..., None]
     for m in net.modules():
         if isinstance(m, torch.nn.BatchNorm3d):
@@ -306,17 +361,15 @@ def calibrate(torch, net, normalizer, seed=1):
     with torch.no_grad():
         net(x)
     hook.remove()
-    # the head conv's input [N, 32, D, H, W] at sampled body voxels, tap by
-    # tap; fitted on the body only, as air would pull a near-linear fit
-    # towards putting fat on the soft-tissue side
+    # the head conv's input [N, 32, D, H, W] at sampled voxels, tap by tap
     f = F.pad(feats[0], (1, 1, 1, 1, 1, 1))
-    vox = torch.nonzero(torch.from_numpy(hu > -500))
+    vox = torch.nonzero(torch.from_numpy(fit))
     g = torch.Generator().manual_seed(seed)
     n, z, y, xx = vox[torch.randperm(len(vox), generator=g)[:60000]].T
     a = torch.cat([f[n, :, z + dz, y + dy, xx + dx] for dz in range(3)
                    for dy in range(3) for dx in range(3)], dim=1).double()
     a = torch.cat([a, torch.ones(len(a), 1, dtype=a.dtype)], dim=1)
-    target = torch.from_numpy(hu > -30)[n, z, y, xx].double() * 2 - 1
+    target = torch.from_numpy(fg)[n, z, y, xx].double() * 2 - 1
     coef = torch.linalg.solve(a.T @ a, a.T @ target).float()
     w = coef[:-1].view(3, 3, 3, -1).permute(3, 0, 1, 2)
     with torch.no_grad():
@@ -502,12 +555,15 @@ def phase_main(torch, tc, workdir, gpu):
     part = ["--partition_type", "SIZE", "--partition_size", "96", "96", "96",
             "--partition_stride", "64", "64", "64"]
 
-    def run(tag, extra):
+    def run(tag, extra, inputs=None):
+        """One case through the CLI: ``inputs`` (default: this case, this
+        model) + the SIZE partition + ``extra``."""
         out = os.path.join(workdir, tag)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = seg_infer(["-i", ct, "-m", model_dir, "-o", out] + part + extra)
+        res = seg_infer((inputs or ["-i", ct, "-m", model_dir]) + ["-o", out]
+                        + part + extra)
         wall = time.perf_counter() - t0
         check(len(res) == 1, f"{tag}: expected one segmented case, got {res}")
         name, secs, stages = res[0]
@@ -552,7 +608,9 @@ def phase_main(torch, tc, workdir, gpu):
     check(dice >= DICE_MIN, f"bf16/f32 foreground Dice {dice} < {DICE_MIN}")
     check(dprob <= DPROB_MAX, f"bf16/f32 max |dprob| {dprob} > {DPROB_MAX}")
     return dict(launches=launches, run=run, f32=f32, body=body, ct=ct,
-                n_batches=n_batches)
+                n_batches=n_batches, model_dir=model_dir, norm=norm,
+                bf16_mask=first["mask"], serial=second, workdir=workdir,
+                part=part)
 
 
 def phase_main_int8(torch, tc, wi, ctx, gpu):
@@ -595,6 +653,213 @@ def phase_main_int8(torch, tc, wi, ctx, gpu):
         check(gaps["max_abs_dprob"] <= dprob_max,
               f"{tag}/f32 max |dprob| {gaps['max_abs_dprob']} > {dprob_max}")
     return launches[1]
+
+
+def check_gaps(tag, gaps, dice_min, dprob_max):
+    """Fail unless ``gaps`` (:func:`mask_gaps`, the float32 run first) are
+    within the limits and the float32 foreground holds its share of the
+    body."""
+    fg_body = gaps["foreground_fraction_of_body"]
+    check(FG_BODY[0] <= fg_body <= FG_BODY[1],
+          f"{tag}: foreground is {fg_body} of the body, outside {FG_BODY}")
+    check(gaps["agreement"] >= AGREE_MIN,
+          f"{tag} agreement {gaps['agreement']} < {AGREE_MIN}")
+    check(gaps["foreground_dice"] >= dice_min,
+          f"{tag} foreground Dice {gaps['foreground_dice']} < {dice_min}")
+    check(gaps["max_abs_dprob"] <= dprob_max,
+          f"{tag} max |dprob| {gaps['max_abs_dprob']} > {dprob_max}")
+
+
+#: patch batches of each case of the pipeline phase: 96^3 boxes at stride 64
+#: in batches of 8 over a 384x384x320 iso grid (6 x 6 x 5 boxes) for the
+#: 240-slice cases and a 384x384x256 one (6 x 6 x 4) for the 160-slice case
+PIPE_BATCHES = {"a_main": 23, "b_seed1": 23, "c_short": 18}
+
+
+def phase_pipeline(torch, tc, ctx, gpu):
+    """``seg_infer --bf16`` over a folder of three cases (the main case, a
+    second seed, a 512x512x160 case): the pipelined loop overlaps one case's
+    read and write with another's device work. The main case's mask must
+    equal the main path's; the others' foreground must hold its share of
+    their bodies."""
+    import shutil
+    import numpy as np
+    from segmentation3d_tpu_torch.cli.seg_infer import main as seg_infer
+    from segmentation3d_tpu_torch.io import read_image
+    folder = os.path.join(ctx["workdir"], "pipeline_in")
+    os.makedirs(folder)
+    t = time.perf_counter()
+    shutil.copy(ctx["ct"], os.path.join(folder, "a_main.nii.gz"))
+    bodies = {"a_main": ctx["body"],
+              "b_seed1": make_ct(os.path.join(folder, "b_seed1.nii.gz"), seed=1) > -500,
+              "c_short": make_ct(os.path.join(folder, "c_short.nii.gz"), seed=2,
+                                 slices=160) > -500}
+    setup = time.perf_counter() - t
+    out = os.path.join(ctx["workdir"], "pipeline")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the pipelined path: counts reset just before, read just after
+    tc.thin_conv3d.launches = 0
+    t0 = time.perf_counter()
+    res = seg_infer(["-i", folder, "-m", ctx["model_dir"], "-o", out]
+                    + ctx["part"] + ["--bf16"])
+    wall = time.perf_counter() - t0
+    launches, peak = tc.thin_conv3d.launches, torch.cuda.max_memory_allocated()
+    check([r[0] for r in res] == list(PIPE_BATCHES), f"pipeline results {res}")
+    check(launches == 20 * sum(PIPE_BATCHES.values()),
+          f"thin_conv3d launched {launches} times in the pipeline, expected "
+          f"20 x {sum(PIPE_BATCHES.values())}")
+    fg, differ = {}, None
+    for name, body in bodies.items():
+        mask = read_image(os.path.join(out, name, "seg.mha")).data
+        check(mask.shape == body.shape, f"{name}: mask shape {mask.shape}")
+        fg[name] = float(np.mean((mask == 1)[body]))
+        if name == "a_main":
+            differ = int(np.sum(mask != ctx["bf16_mask"]))
+    serial = ctx["serial"]
+    emit("pipeline", cases=[dict(name=n, seconds=sec, stages=st) for n, sec, st in res],
+         launches=launches, patch_batches=PIPE_BATCHES, wall_seconds=wall,
+         volumes_per_min=60.0 * len(res) / wall,
+         serial_seconds=serial["wall"], serial_volumes_per_min=60.0 / serial["wall"],
+         serial_stages=serial["stages"], main_case_voxels_differing=differ,
+         foreground_fraction_of_body=fg, max_memory_allocated=peak,
+         serial_max_memory_allocated=serial["peak"], cpu_count=os.cpu_count(),
+         setup_seconds=setup, gpu=gpu)
+    check(differ == 0, f"the pipelined main case differs from the main path's "
+          f"bf16 mask in {differ} voxels")
+    for name in ("b_seed1", "c_short"):
+        check(FG_BODY[0] <= fg[name] <= FG_BODY[1],
+              f"{name}: foreground is {fg[name]} of the body, outside {FG_BODY}")
+
+
+def save_model(torch, ctx, tag, net, net_name="vnet", spacing=1.0):
+    from segmentation3d_tpu_torch.utils.model_io import save_checkpoint
+    path = os.path.join(ctx["workdir"], tag)
+    save_checkpoint(path, 1, 0, net.state_dict(), net_name, 16, 1, 2,
+                    [spacing] * 3, "LINEAR", [ctx["norm"]])
+    return path
+
+
+def phase_ensemble(torch, tc, ctx, gpu):
+    """``-m a -m b --bf16`` (a second seeded model) against the float32
+    ensemble under the bf16 limits, with both members' kernel launches;
+    ``-m a -m a`` must give exactly the main path's bf16 mask."""
+    import numpy as np
+    from segmentation3d_tpu_torch.io import read_image
+    run, ct, a = ctx["run"], ctx["ct"], ctx["model_dir"]
+    b = save_model(torch, ctx, "model_b",
+                   calibrate(torch, seeded_vnet(torch, seed=1), ctx["norm"], seed=2))
+    tc.thin_conv3d.launches = 0
+    bf16 = run("ens_bf16", ["--bf16", "--save_prob"], ["-i", ct, "-m", a, "-m", b])
+    launches = tc.thin_conv3d.launches
+    f32 = run("ens_f32", ["--save_prob"], ["-i", ct, "-m", a, "-m", b])
+    same = run("ens_aa", ["--bf16"], ["-i", ct, "-m", a, "-m", a])
+    gaps = mask_gaps(np, read_image, f32, bf16, ctx["body"])
+    differ = int(np.sum(same["mask"] != ctx["bf16_mask"]))
+    emit("ensemble", launches=launches, **gaps,
+         agreement_with_member_a=float(np.mean(bf16["mask"] == ctx["bf16_mask"])),
+         aa_voxels_differing_from_main_path=differ, seconds=bf16["wall"],
+         stages=bf16["stages"], f32_seconds=f32["wall"],
+         max_memory_allocated=bf16["peak"], gpu=gpu)
+    check(launches == 2 * 20 * ctx["n_batches"],
+          f"ensemble launched thin_conv3d {launches} times, expected "
+          f"2 x 20 x {ctx['n_batches']}")
+    check_gaps("ensemble bf16/f32", gaps, DICE_MIN, DPROB_MAX)
+    check(differ == 0, f"-m a -m a differs from -m a in {differ} voxels")
+
+
+def phase_tta(torch, tc, ctx, gpu):
+    """``--bf16 --tta all`` (8 flips of every batch) against float32
+    ``--tta all`` under the bf16 limits."""
+    import numpy as np
+    from segmentation3d_tpu_torch.io import read_image
+    run = ctx["run"]
+    tc.thin_conv3d.launches = 0
+    bf16 = run("tta_bf16", ["--bf16", "--tta", "all", "--save_prob"])
+    launches = tc.thin_conv3d.launches
+    f32 = run("tta_f32", ["--tta", "all", "--save_prob"])
+    gaps = mask_gaps(np, read_image, f32, bf16, ctx["body"])
+    emit("tta", launches=launches, **gaps,
+         agreement_with_no_tta=float(np.mean(bf16["mask"] == ctx["bf16_mask"])),
+         seconds=bf16["wall"], stages=bf16["stages"], f32_seconds=f32["wall"],
+         f32_stages=f32["stages"], max_memory_allocated=bf16["peak"], gpu=gpu)
+    check(launches == 8 * 20 * ctx["n_batches"],
+          f"--tta all launched thin_conv3d {launches} times, expected "
+          f"8 x 20 x {ctx['n_batches']}")
+    check_gaps("tta bf16/f32", gaps, DICE_MIN, DPROB_MAX)
+
+
+def phase_c2f(torch, tc, wi, ctx, gpu):
+    """Coarse-to-fine: a seeded 4 mm coarse net fitted to the phantom's body
+    on its padded coarse grid (:func:`coarse_patches`) finds the ROI in one
+    batch-1 forward of that grid, and the main model runs inside it. ``--bf16`` and ``--int8`` against the float32 run, with
+    each kernel's launches: the coarse forward's 20, plus 20 (bf16) or
+    1 + 19 (int8) per fine batch."""
+    import numpy as np
+    from segmentation3d_tpu_torch.io import read_image
+    run = ctx["run"]
+    coarse = save_model(torch, ctx, "coarse", calibrate(
+        torch, seeded_vnet(torch, seed=2), ctx["norm"], seed=3,
+        patches=coarse_patches), spacing=4.0)
+    inputs = ["-i", ctx["ct"], "-m", coarse, "--fine_model", ctx["model_dir"]]
+    f32 = run("c2f_f32", ["--save_prob"], inputs)
+    tc.thin_conv3d.launches = 0
+    bf16 = run("c2f_bf16", ["--bf16", "--save_prob"], inputs)
+    thin = tc.thin_conv3d.launches
+    tc.thin_conv3d.launches = 0
+    wi.window_conv_i8.launches = 0
+    int8 = run("c2f_int8", ["--int8", "--save_prob"], inputs)
+    thin8, win8 = tc.thin_conv3d.launches, wi.window_conv_i8.launches
+    fine_batches = (thin - 20) // 20
+    gaps = {tag: mask_gaps(np, read_image, f32, r, ctx["body"])
+            for tag, r in (("bf16", bf16), ("int8", int8))}
+    emit("c2f", launches=dict(bf16=thin, int8=dict(thin_conv3d=thin8,
+                                                   window_conv_i8=win8)),
+         fine_batches=fine_batches, main_path_batches=ctx["n_batches"],
+         gaps=gaps, seconds=dict(f32=f32["wall"], bf16=bf16["wall"],
+                                 int8=int8["wall"]),
+         stages=dict(bf16=bf16["stages"], int8=int8["stages"]),
+         max_memory_allocated=bf16["peak"], gpu=gpu)
+    # the ROI was found: the fine pass ran. This seeded coarse net labels a
+    # few scattered voxels of air and padding far from the body foreground,
+    # so its ROI spans the volume and the fine grid has the flat grid's size
+    # (centre-anchored on the ROI, so sampled at other points)
+    check(thin == 20 + 20 * fine_batches and fine_batches >= 1,
+          f"c2f --bf16 launched thin_conv3d {thin} times: not 20 + 20 x "
+          "fine batches")
+    check((thin8, win8) == (20 + fine_batches, 19 * fine_batches),
+          f"c2f --int8 launched (thin_conv3d, window_conv_i8) {(thin8, win8)}, "
+          f"expected ({20 + fine_batches}, {19 * fine_batches})")
+    check_gaps("c2f bf16/f32", gaps["bf16"], DICE_MIN, DPROB_MAX)
+    check_gaps("c2f int8/f32", gaps["int8"], *INT8_LIMITS["int8_prob"])
+
+
+def phase_vbnet(torch, tc, wi, ctx, gpu):
+    """A seeded full-width VB-Net: ``--bf16`` runs the nn.Module under
+    autocast, as the JAX package routes it (no kernel launch), against
+    float32 at the mask agreement bar."""
+    import numpy as np
+    from segmentation3d_tpu_torch.io import read_image
+    run = ctx["run"]
+    vb = save_model(torch, ctx, "vbnet", calibrate(
+        torch, seeded_vnet(torch, seed=3, bottleneck=True), ctx["norm"], seed=4),
+        net_name="vbnet")
+    tc.thin_conv3d.launches = 0
+    wi.window_conv_i8.launches = 0
+    bf16 = run("vbnet_bf16", ["--bf16", "--save_prob"], ["-i", ctx["ct"], "-m", vb])
+    launches = (tc.thin_conv3d.launches, wi.window_conv_i8.launches)
+    f32 = run("vbnet_f32", ["--save_prob"], ["-i", ctx["ct"], "-m", vb])
+    gaps = mask_gaps(np, read_image, f32, bf16, ctx["body"])
+    emit("vbnet", launches=launches, **gaps, seconds=bf16["wall"],
+         stages=bf16["stages"], f32_seconds=f32["wall"],
+         max_memory_allocated=bf16["peak"], gpu=gpu)
+    check(launches == (0, 0), f"vbnet --bf16 launched {launches}: its route "
+          "is the nn.Module")
+    fg_body = gaps["foreground_fraction_of_body"]
+    check(FG_BODY[0] <= fg_body <= FG_BODY[1],
+          f"vbnet: foreground is {fg_body} of the body, outside {FG_BODY}")
+    check(gaps["agreement"] >= AGREE_MIN,
+          f"vbnet bf16/f32 agreement {gaps['agreement']} < {AGREE_MIN}")
 
 
 def kernel_entry(name, source, replaces, launches, rows, peak_ops, ops_key):
@@ -645,6 +910,11 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         ctx = phase_main(torch, tc, workdir, gpu)
         launches_i8 = phase_main_int8(torch, tc, wi, ctx, gpu)
+        phase_pipeline(torch, tc, ctx, gpu)
+        phase_ensemble(torch, tc, ctx, gpu)
+        phase_tta(torch, tc, ctx, gpu)
+        phase_c2f(torch, tc, wi, ctx, gpu)
+        phase_vbnet(torch, tc, wi, ctx, gpu)
 
     print(gpu)
     print(json.dumps({"kernels": [

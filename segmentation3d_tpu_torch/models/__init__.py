@@ -1,11 +1,11 @@
 """Model registry: checkpoints name their network (``payload['net']``), and
-a model module exposes ``SegmentationNet`` and ``max_stride()``. Only
-``"vnet"`` is ported so far."""
+a model module exposes ``SegmentationNet`` and ``max_stride()``: ``"vnet"`` and ``"vbnet"`` (its
+bottleneck variant)."""
 from __future__ import annotations
 
 import importlib
 
-_PORTED = ("vnet",)
+_PORTED = ("vnet", "vbnet")
 
 
 def get_network_module(name: str):

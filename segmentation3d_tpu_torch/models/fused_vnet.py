@@ -117,6 +117,9 @@ def build_fused_forward(net: SegmentationNet, dtype=torch.bfloat16,
     ``down_<c>/res/conv<j>``, ``down_<c>/res``, ``up_<c>/up``, ...,
     ``out_block/conv``. Single-conv residual blocks then run their tail
     outside the kernel, which would otherwise hide the conv's own output."""
+    if net.bottleneck:
+        raise NotImplementedError("fused forward supports the standard "
+                                  "(non-bottleneck) V-Net blocks")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"dtype must be bfloat16 or float32, got {dtype}")
     device = next(net.parameters()).device

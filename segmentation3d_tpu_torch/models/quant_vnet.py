@@ -108,7 +108,7 @@ def build_int8_forward(net: SegmentationNet, act_clip: float = 8.0,
     parity tests). ``forward.sites`` holds each site's int8 weights,
     dequant vector ``s``, bias, ``inv_out`` (and, for residual blocks,
     ``s_id``) as built."""
-    if getattr(net, "bottleneck", False):
+    if net.bottleneck:
         raise NotImplementedError("the int8 forward supports the standard "
                                   "(non-bottleneck) V-Net blocks")
     if dtype not in (torch.bfloat16, torch.float32):

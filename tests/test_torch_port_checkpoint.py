@@ -124,5 +124,12 @@ def test_checkpoint_selection(tmp_path):
 
 
 def test_bottleneck_is_refused():
-    with pytest.raises(NotImplementedError):
-        SegmentationNet(1, 2, bottleneck=True)
+    """The bottleneck net (vbnet) builds, but the folded forwards refuse it,
+    as the JAX package's fused and packed forwards do; it runs as the
+    nn.Module (tests/test_torch_port_vbnet.py)."""
+    from segmentation3d_tpu_torch.models.fused_vnet import build_fused_forward
+    from segmentation3d_tpu_torch.models.quant_vnet import build_int8_forward
+    net = SegmentationNet(1, 2, bottleneck=True, **KW)
+    for build in (build_fused_forward, build_int8_forward):
+        with pytest.raises(NotImplementedError):
+            build(net)

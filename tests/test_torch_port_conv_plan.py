@@ -2,7 +2,8 @@
 and its shared-memory addressing, on the CPU.
 
 - For every site of both main paths (``chip_smoke.py``'s ``site_list()`` and
-  ``site_list_i8()``, batch 8) and every wide shape of
+  ``site_list_i8()``, batch 8), of the coarse-to-fine coarse pass (the same
+  sites at batch 1) and every wide shape of
   ``tests/test_torch_port_kernel_cuda.py``: the plan fits in 227 KB of
   shared memory, its boxes cover every output voxel exactly once, its grid
   is the one planned, and the main path's sites launch at least one block
@@ -53,6 +54,8 @@ def _sites():
            for _, s, ci, co, _, _ in chip_smoke.site_list() if ci % 32 == 0]
     out += [(b, s, s, s, ci, co, 1, True)
             for _, s, ci, co, _, _, _ in chip_smoke.site_list_i8()]
+    out += [(1, s, s, s, ci, co, 2, False)
+            for _, s, ci, co, _, _ in chip_smoke.site_list() if ci % 32 == 0]
     for eb in (2, 1):
         out += [(b, *chip_smoke.RAGGED_SHAPE, 32, 32, eb, False)]
         out += [(*CUDA_SHAPE, ci, co, eb, False)

@@ -14,8 +14,13 @@ differ, so a requant that truncated or rounded half away from zero fails.
 window_conv_i8 sums int8 products in int32, exactly, and runs the plain
 version's float32 epilogue op for op: its int8 outputs must be exactly
 equal, its bf16 / f32 outputs too (one bf16 step is allowed).
+
+The pipelined case loop on the card must give every case the mask that the
+same case gives alone.
 """
 import functools
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +32,9 @@ from segmentation3d_tpu_torch.models.vnet import SegmentationNet
 from segmentation3d_tpu_torch.ops import conv_plan
 from segmentation3d_tpu_torch.ops import thin_conv as tc
 from segmentation3d_tpu_torch.ops import window_i8 as wi
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (imports only the standard library at top level)
 
 _TDT = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
 
@@ -70,6 +78,24 @@ def test_kernel_matches_plain(cuda_device, cin, cout, residual, out):
         assert (got == ref).float().mean().item() > 0.99
     else:
         assert err <= 0.05 * ref.float().abs().max().item()
+
+
+# the coarse-to-fine coarse pass: one whole 96^3 grid at batch 1, every
+# site of the forward; and a flipped batch as test-time augmentation feeds
+COARSE_SITES = [(s, ci, co, res) for _, s, ci, co, res, _ in chip_smoke.site_list()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,cin,cout,tail", COARSE_SITES)
+def test_kernel_matches_plain_at_coarse_sites(cuda_device, size, cin, cout, tail):
+    x, w, b = _inputs(cin, cout, size + cout, (1, size, size, size), cuda_device)
+    kw = dict(act="relu", residual="relu" if tail else "none")
+    for xi in (x, torch.flip(x, (1, 3))):
+        got = tc.thin_conv3d(xi, w, b, **kw)
+        ref = tc.thin_conv3d_reference(xi, w, b, **kw)
+        torch.cuda.synchronize()
+        assert (got.float() - ref.float()).abs().max().item() <= \
+            0.05 * ref.float().abs().max().item()
 
 
 # wgmma path: several K slices, N split across blocks, ragged boxes in x,
@@ -236,3 +262,43 @@ def test_window_conv_i8_cpu_tensor_never_launches():
     got = wi.window_conv_i8(x, w, s, b, "relu", **kw)
     assert torch.equal(got, wi.window_conv_i8_reference(x, w, s, b, "relu", **kw))
     assert wi.window_conv_i8.launches == before
+
+
+@pytest.mark.cuda
+def test_pipeline_on_card_matches_one_case_at_a_time(cuda_device, tmp_path):
+    """Three cases of different shapes through the pipelined loop (bf16,
+    kernel forward) give the masks that each case gives alone."""
+    from segmentation3d_tpu_torch.core.seg_infer import segmentation
+    from segmentation3d_tpu_torch.io import Volume, read_image, write_image
+    from segmentation3d_tpu_torch.ops.geometry import Frame
+    from segmentation3d_tpu_torch.utils.model_io import save_checkpoint
+    from segmentation3d_tpu_torch.utils.normalizer import AdaptiveNormalizer
+    kw = dict(base_channels=16, down_convs=(1, 2), up_convs=(2, 1))
+    torch.manual_seed(0)
+    net = SegmentationNet(1, 2, **kw).eval()
+    model = str(tmp_path / "model")
+    save_checkpoint(model, 1, 0, net.state_dict(), "vnet", 4, 1, 2, [1.0] * 3,
+                    "LINEAR", [AdaptiveNormalizer()], extra={"net_kwargs": kw})
+    rng = np.random.default_rng(0)
+    names = []
+    for i, shape in enumerate([(40, 44, 36), (36, 40, 52), (44, 36, 40)]):
+        z, y, x = np.mgrid[:shape[0], :shape[1], :shape[2]]
+        ball = (z - shape[0] / 2) ** 2 + (y - 20) ** 2 + (x - 18) ** 2 < 150
+        img = np.where(ball, 200, -100) + rng.normal(0, 20, shape)
+        names.append(f"c{i}")
+        write_image(Volume(img.astype(np.int16), Frame.identity((1.1, 0.9, 1.3))),
+                    str(tmp_path / "in" / f"c{i}.nii.gz"))
+    opts = dict(dtype=torch.bfloat16, partition_type="SIZE", batch_size=4,
+                partition_size=[32, 32, 32], partition_stride=[16, 16, 16],
+                save_prob=True)
+    before = tc.thin_conv3d.launches
+    res = segmentation(str(tmp_path / "in"), model, str(tmp_path / "all"), **opts)
+    assert [r[0] for r in res] == names
+    assert tc.thin_conv3d.launches > before
+    for name in names:
+        segmentation(str(tmp_path / "in" / f"{name}.nii.gz"), model,
+                     str(tmp_path / "one"), **opts)
+        for f in ("seg.mha", "prob_1.mha"):
+            a, b = (read_image(str(tmp_path / r / name / f)).data
+                    for r in ("all", "one"))
+            np.testing.assert_array_equal(a, b)

@@ -109,23 +109,13 @@ def test_segmentation_refuses_silent_cpu(case):
                    "--int8"])
 
 
-@pytest.mark.parametrize("extra", [
-    ["--tta", "x"], ["-m", "other_model"], ["--fine_model", "fine"],
-    ["--num_devices", "2"], ["--spatial_shard"],
-])
+@pytest.mark.parametrize("extra", [["--num_devices", "2"], ["--spatial_shard"]])
 def test_cli_refuses_unported_options(extra, capsys):
     with pytest.raises(SystemExit) as e:
         seg_infer(["-i", "in.nii.gz", "-m", "model", "-o", "out", "-g", "-1"]
                   + extra)
     assert e.value.code == 2
     assert "not ported" in capsys.readouterr().err
-
-
-def test_ensembles_refused_in_api(case):
-    d, img, model_dir = case
-    with pytest.raises(NotImplementedError):
-        segmentation(img, [model_dir, model_dir], os.path.join(d, "ens"),
-                     device="cpu")
 
 
 def test_cli_bf16_on_cpu(case):

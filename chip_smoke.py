@@ -9,7 +9,9 @@ NVIDIA GPU:
 3. kernels: holds ``thin_conv3d`` against its plain PyTorch version at every
    conv site of the bf16 V-Net forward (96^3 patches, batch 8, full width)
    and at the int8 forward's stem, at the coarse-to-fine coarse pass's sites
-   (batch 1) and on a flipped batch, and ``window_conv_i8`` against its plain
+   (batch 1), on a flipped batch, and at the sites of the train phase's
+   validation forward (one 240x224x224 patch) and at up_32 of a whole
+   256^3 volume and of a 64x512x512 slab, and ``window_conv_i8`` against its plain
    version at every int8 3^3 site of the int8 forward (int8 outputs must be
    exactly equal), each kernel also at one ragged wide site
    ([8, 37, 50, 61, 32] -> 32); times each kernel, its plain version, a
@@ -36,7 +38,18 @@ NVIDIA GPU:
 9. c2f: ``--fine_model`` with a seeded 4 mm coarse net, ``--bf16`` and
    ``--int8`` against float32;
 10. vbnet: a seeded full-width VB-Net, ``--bf16`` (the nn.Module, no kernel
-   launch) against float32.
+   launch) against float32;
+11. train_step: one SGD step of a seeded full-width V-Net on a seeded
+   2 x 64^3 batch on the card and on the CPU, in float32 (TF32 off) and in
+   float64 (loss, every update, every BatchNorm buffer), then the median step time at
+   8 x 96^3 in float32 and bf16 beside its bound;
+12. train: ``seg_train`` on four seeded CT-like 256x256x160 cases with a
+   two-organ label and one validation case (bf16, batch 8 x 96^3, 32
+   steps, two save points): the loss falls, ``thin_conv3d`` launches 20
+   times per validation forward and ``window_conv_i8`` never, the folded
+   forward's val Dice is the float32 module's within a bar, ``chk_best``
+   and the last checkpoint run through ``seg_infer --bf16``; crops/s, the
+   prefetch-wait share, peak memory and seconds per save point.
 
 Every path's kernel launches are counted from zero around its run and
 checked against its batches.
@@ -58,6 +71,9 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1.979e15  # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 BATCH, PATCH = 8, 96
+#: the train phase's validation case (256 x 256 x 160 at 0.8 x 0.8 x 1.5 mm)
+#: on its 1 mm grid padded to the 32-voxel shape bucket, z y x: one patch
+VAL_DIMS = (240, 224, 224)
 RAGGED_SHAPE = (37, 50, 61)  # a wide site whose boxes are ragged on every axis
 AGREE_MIN = 0.98          # mask agreement with f32 (tests/test_pallas_conv.py, test_quant.py)
 # foreground Dice and largest probability gap against the f32 run: about
@@ -170,6 +186,19 @@ def phase_kernels(torch, tc):
                    residual="relu" if res else "none", out=torch.bfloat16,
                    per_forward=0, batch=1, per_coarse_forward=k)
               for n, sz, ci, co, res, k in site_list()]
+    # in-training validation: the train phase's case as one whole-volume
+    # patch, and the largest patches validation gives the kernel (a whole
+    # 256^3 volume, a 64-plane slab of a 512 x 512 volume)
+    cases += [dict(name=f"validation {n}",
+                   dims=tuple(d * sz // PATCH for d in VAL_DIMS), cin=ci, cout=co,
+                   act="relu", residual="relu" if res else "none",
+                   out=torch.bfloat16, per_forward=0, batch=1, per_val_forward=k)
+              for n, sz, ci, co, res, k in site_list()]
+    cases += [dict(name=f"validation {tag} up_32.res", dims=dims, cin=32, cout=32,
+                   act="relu", residual="relu", out=torch.bfloat16,
+                   per_forward=0, batch=1)
+              for tag, dims in (("whole 256^3", (256, 256, 256)),
+                                ("slab 64x512x512", (64, 512, 512)))]
     results = []
     for c in cases:
         dims = c.get("dims") or (c["size"],) * 3
@@ -227,6 +256,7 @@ def phase_kernels(torch, tc):
                  out=str(c["out"]).replace("torch.", ""),
                  path=tc.kernel_path(ci, co), per_forward=c["per_forward"],
                  per_coarse_forward=c.get("per_coarse_forward", 0),
+                 per_val_forward=c.get("per_val_forward", 0),
                  **launch_plan(tc.kernel_path(ci, co), dims, ci, co, 2, nb),
                  max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
                  plain_ms=plain_ms, library_ms=library_ms,
@@ -241,11 +271,11 @@ def phase_kernels(torch, tc):
     return results
 
 
-def phantom_hu(z, y, x, rng):
+def phantom_hu(z, y, x, rng, noise=20.0):
     """A CT-like int16 volume sampled at the millimetre coordinates ``z``,
     ``y``, ``x`` (1-D, 0 at the centre): air at -1000 HU, an elliptic body
     (soft tissue inside a fat ring, 60% and 40% of it), organs, a spine,
-    noise."""
+    gaussian noise of ``noise`` HU."""
     import numpy as np
     zz, yy, xx = np.meshgrid(z, y, x, indexing="ij", sparse=True)
     body2d = ((xx / 160.0) ** 2 + (yy / 110.0) ** 2)[0]
@@ -257,7 +287,8 @@ def phantom_hu(z, y, x, rng):
         img[((zz - cz) ** 2 + (yy - cy) ** 2 + (xx - cx) ** 2) < r * r] = hu
     spine = ((yy - 70) ** 2 + xx ** 2) < 15 ** 2
     img[np.broadcast_to(spine, img.shape)] = 700
-    img += rng.normal(0, 20, img.shape).astype(np.int16)
+    if noise:
+        img += rng.normal(0, noise, img.shape).astype(np.int16)
     return img
 
 
@@ -862,6 +893,368 @@ def phase_vbnet(torch, tc, wi, ctx, gpu):
           f"vbnet bf16/f32 agreement {gaps['agreement']} < {AGREE_MIN}")
 
 
+#: train_step phase: one SGD step on the card against the CPU's, in float32
+#: and in float64. A float32 step is no closer to itself: the CPU's float32
+#: step against its float64 one, printed beside them, differs by up to ~4%
+#: of a deep tensor's largest update (its gradients are small and pass
+#: several BatchNorm backwards, which cancel) and ~0.2% over all updates.
+#: The float32 limits sit at about five times the gaps of a sound run on
+#: the card; in float64 the same cancellation leaves ~1e-10, so there the
+#: card's step must be the CPU's to 1e-8: the same function, not a nearby
+STEP_LOSS_RTOL = 1e-4
+STEP_UPDATE_TOL = 0.25   # |update difference| / largest update, per tensor
+STEP_UPDATE_L2 = 1e-2    # ||update difference|| / ||update||, all tensors
+STEP_STATS_TOL = 1e-4    # |BN buffer difference| / largest value, per tensor
+STEP_F64_TOL = 1e-8      # every float64 gap above
+#: train phase: the mean of the last 4 losses against the first 4
+LOSS_FALL = 0.85  # a sound run on an H100: 0.75
+#: train phase: val Dice of the folded bf16 forward against the float32
+#: nn.Module's on the same checkpoint
+VAL_DICE_GAP = 0.02
+PEAK_F32_FLOPS = 67e12    # H100 SXM float32 rate outside the tensor cores
+DEV = "cuda"              # the card (the train phases only name it here)
+
+
+def forward_flops(torch, net, shape):
+    """Operations of one forward of ``net`` at ``shape`` [B,D,H,W,C]: 2 x
+    Cin x Cout x k^3 per output voxel of each conv, per input voxel of each
+    transposed conv (the 1 x 1 head projection included), counted from the
+    shapes a forward on the card meets."""
+    flops = []
+
+    def hook(m, inp, out):
+        k = m.weight[0, 0].numel()
+        if isinstance(m, torch.nn.ConvTranspose3d):
+            flops.append(2 * inp[0].numel() * m.out_channels * k)
+        else:
+            flops.append(2 * out.numel() * m.in_channels * k)
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d))]
+    with torch.no_grad():
+        net.eval()(torch.zeros(shape, device=DEV))
+    for h in hooks:
+        h.remove()
+    return sum(flops)
+
+
+def step_profile(torch, fn, top=12):
+    """One call of ``fn`` under ``torch.profiler``: its kernels' device time
+    in all, by kind (convolutions, BatchNorm, the rest) and the ``top``
+    kernels by their own device time (ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for r in prof.key_averages():
+        us = getattr(r, "self_device_time_total", None)
+        if us is None:
+            us = getattr(r, "self_cuda_time_total", 0.0)
+        if us and not r.key.startswith("aten::"):  # ops repeat their kernels' time
+            rows.append((r.key[:90], us / 1e3, r.count))
+    rows.sort(key=lambda t: -t[1])
+    by_kind = {"conv": 0.0, "batch_norm": 0.0, "other": 0.0}
+    for key, ms, _ in rows:
+        k = key.lower()
+        kind = "batch_norm" if "batch_norm" in k else "conv" if any(
+            s in k for s in ("conv", "gemm", "grad", "cudnn")) else "other"
+        by_kind[kind] += ms
+    return dict(total_ms=sum(t[1] for t in rows), by_kind_ms=by_kind, top=rows[:top])
+
+
+def phase_train_step(torch, gpu):
+    """One SGD step of a seeded full-width V-Net on one seeded batch (2 x
+    64^3, Dice) on the card and on the CPU, in float32 (TF32 off) and in
+    float64: the losses, every parameter's update and every BatchNorm
+    buffer must agree. Then
+    the median step time at batch 8 x 96^3, float32 and bf16."""
+    import copy
+    import numpy as np
+    from segmentation3d_tpu_torch.config import EasyDict
+    from segmentation3d_tpu_torch.core.seg_train import train_step
+    from segmentation3d_tpu_torch.losses import create_loss
+    from segmentation3d_tpu_torch.models.vnet import SegmentationNet, init_like_flax_
+    loss_fn = create_loss(EasyDict(name="Dice", obj_weight=None), 2)
+    net = SegmentationNet(1, 2, remat=True)
+    init_like_flax_(net, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 64, 64, 64, 1)).astype(np.float32))
+    y = torch.from_numpy((rng.random((2, 64, 64, 64)) < 0.3).astype(np.int32))
+    results = {}
+    for tag, dev, dt in ((DEV, DEV, torch.float32), ("cpu", "cpu", torch.float32),
+                         (DEV + "_f64", DEV, torch.float64),
+                         ("cpu_f64", "cpu", torch.float64)):
+        n = copy.deepcopy(net).to(device=dev, dtype=dt)
+        opt = torch.optim.SGD(n.parameters(), lr=0.1)
+        t = time.perf_counter()
+        loss = float(train_step(n, opt, loss_fn, x.to(dev, dt), y.to(dev)))
+        results[tag] = (loss, {k: v.detach().to("cpu", torch.float64)
+                               for k, v in n.state_dict().items()},
+                        time.perf_counter() - t, np.finfo(str(dt)[6:]).dtype)
+        del n, opt
+    old = {k: v.double() for k, v in net.state_dict().items()}
+
+    def gaps(a, b):
+        """Run ``a`` against run ``b``: the loss gap, the worst per-tensor
+        update gap and its tensor, the update L2 gap, the BN buffer gap."""
+        (la, sa, _, ft), (lb, sb, _, _) = results[a], results[b]
+        upd = stats = 0.0
+        worst, num, den = None, 0.0, 0.0
+        for k, v in sb.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            if "running" in k:
+                stats = max(stats, float((sa[k] - v).abs().max() / v.abs().max()))
+            elif not (k.endswith(".bias") and "bn" not in k and "proj" not in k):
+                # conv biases that feed a BatchNorm get no gradient; an
+                # update read off the parameters is known to 2 ulp
+                d, e = v - old[k], (sa[k] - old[k]) - (v - old[k])
+                ulp = 2 * float(np.spacing(ft.type(v.abs().max())))
+                g = float((e.abs().max() - ulp) / d.abs().max())
+                num, den = num + float((e * e).sum()), den + float((d * d).sum())
+                if g > upd:
+                    upd, worst = g, k
+        return dict(loss_rel_gap=abs(la - lb) / abs(lb), update_gap=upd,
+                    update_gap_at=worst, update_l2_gap=(num / den) ** 0.5,
+                    bn_buffer_gap=stats)
+    f32, f64 = gaps(DEV, "cpu"), gaps(DEV + "_f64", "cpu_f64")
+    emit("train_step", loss_cuda=results[DEV][0], loss_cpu=results["cpu"][0],
+         **f32, max_loss_rel_gap=STEP_LOSS_RTOL, max_update_gap=STEP_UPDATE_TOL,
+         max_update_l2_gap=STEP_UPDATE_L2, max_bn_buffer_gap=STEP_STATS_TOL,
+         float64=f64, max_float64_gap=STEP_F64_TOL,
+         cpu_f32_vs_f64=gaps("cpu", "cpu_f64"),
+         cuda_f32_vs_f64=gaps(DEV, "cpu_f64"),
+         seconds={k: r[2] for k, r in results.items()},
+         cpu_count=os.cpu_count(), gpu=gpu)
+    check(f32["loss_rel_gap"] <= STEP_LOSS_RTOL, f"train step loss gap {f32}")
+    check(f32["update_gap"] <= STEP_UPDATE_TOL, f"train step update gap {f32}")
+    check(f32["update_l2_gap"] <= STEP_UPDATE_L2, f"train step update L2 gap {f32}")
+    check(f32["bn_buffer_gap"] <= STEP_STATS_TOL, f"train step BN buffer gap {f32}")
+    check(max(v for k, v in f64.items() if k != "update_gap_at") <= STEP_F64_TOL,
+          f"float64 train step on the card vs the CPU {f64}")
+
+    # step time at the train phase's batch: 8 x 96^3, Adam, both dtypes
+    xb = torch.randn(BATCH, PATCH, PATCH, PATCH, 1, device=DEV)
+    yb = (torch.rand(BATCH, PATCH, PATCH, PATCH, device=DEV) < 0.3).to(torch.int32)
+    timing = {}
+    fwd = forward_flops(torch, net.to(DEV), (1, PATCH, PATCH, PATCH, 1))
+    step_flops = 3 * fwd * BATCH  # forward + the backward's two products
+    for name, dt, peak in (("float32", torch.float32, PEAK_F32_FLOPS),
+                           ("bfloat16", torch.bfloat16, PEAK_BF16_FLOPS)):
+        n = copy.deepcopy(net).to(DEV)
+        opt = torch.optim.Adam(n.parameters(), lr=1e-3)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = train_step(n, opt, loss_fn, xb, yb, dtype=dt)
+            check(bool(torch.isfinite(loss)), f"{name} step: non-finite loss")
+            torch.cuda.synchronize()
+            if i >= 2:  # after two warm-up steps
+                times.append(time.perf_counter() - t)
+        ms = 1e3 * float(np.median(times))
+        timing[name] = dict(median_ms=ms, step_ms=[1e3 * t for t in times],
+                            crops_per_s=BATCH / ms * 1e3,
+                            bound_ms=step_flops / peak * 1e3, bound_by="operations",
+                            peak_memory=torch.cuda.max_memory_allocated(),
+                            device_time=step_profile(torch, lambda: train_step(
+                                n, opt, loss_fn, xb, yb, dtype=dt)))
+        del n, opt
+        torch.cuda.empty_cache()
+    emit("train_step_time", batch=BATCH, crop=PATCH, forward_gflop_per_crop=fwd / 1e9,
+         step_tflop=step_flops / 1e12, remat=True, **timing, gpu=gpu)
+    return timing
+
+
+def label_case(path_img, path_seg, seed, slices=160):
+    """A CT-like int16 case of 256 x 256 x ``slices`` voxels at 0.8 x 0.8 x
+    1.5 mm (:func:`phantom_hu`, its centre moved by up to 10 mm per seed)
+    and its label as uint8: the two dense organs of the noiseless phantom
+    (100 to 300 HU: spheres of 35 and 20 mm radius, not the soft tissue
+    around them, fat, lung or bone). Returns the label."""
+    import numpy as np
+    from segmentation3d_tpu_torch.io import Volume, write_image
+    from segmentation3d_tpu_torch.ops.geometry import Frame
+    rng = np.random.default_rng(seed)
+    sp = np.array([0.8, 0.8, 1.5])
+    shift = rng.uniform(-10, 10, 3)
+    z, y, x = ((np.arange(n) - n / 2) * d + o for n, d, o in
+               ((slices, sp[2], shift[0]), (256, sp[1], shift[1]),
+                (256, sp[0], shift[2])))
+    clean = phantom_hu(z, y, x, rng, noise=0.0)
+    seg = ((clean >= 100) & (clean < 300)).astype(np.uint8)
+    frame = Frame.identity(spacing=sp)
+    write_image(Volume(phantom_hu(z, y, x, rng), frame), path_img)
+    write_image(Volume(seg, frame), path_seg)
+    return seg
+
+
+TRAIN_CONFIG = """from easydict import EasyDict as edict
+from segmentation3d.utils.normalizer import FixedNormalizer, AdaptiveNormalizer
+
+__C = edict()
+cfg = __C
+__C.general = edict()
+__C.general.imseg_list = r"{train}"
+__C.general.save_dir = r"{save_dir}"
+__C.general.resume_epoch = -1
+__C.general.num_gpus = 1
+__C.general.seed = 0
+__C.dataset = edict()
+__C.dataset.num_modality = 1
+__C.dataset.num_classes = 2
+__C.dataset.spacing = [1.0, 1.0, 1.0]
+__C.dataset.crop_size = [{crop}, {crop}, {crop}]
+__C.dataset.sampling_method = "MASK"
+__C.dataset.random_translation = [5.0, 5.0, 5.0]
+__C.dataset.interpolation = "LINEAR"
+__C.dataset.crop_normalizers = [FixedNormalizer(mean=40.0, stddev=400.0, clip=True)]
+__C.dataset.random_flip = True
+__C.loss = edict()
+__C.loss.name = "Dice"
+__C.loss.obj_weight = None
+__C.loss.focal_obj_alpha = 0.25
+__C.loss.focal_gamma = 2.0
+__C.net = edict()
+__C.net.name = "vnet"
+__C.train = edict()
+__C.train.epochs = {epochs}
+__C.train.batchsize = {batch}
+__C.train.num_threads = 2
+__C.train.lr = 1e-3
+__C.train.betas = (0.9, 0.999)
+__C.train.save_epochs = {save_epochs}
+__C.train.val_list = r"{val}"
+__C.train.save_best = True
+__C.debug = edict()
+__C.debug.save_inputs = False
+__C.tpu = edict()
+__C.tpu.dtype = "bfloat16"
+__C.tpu.remat = True
+__C.tpu.mesh = edict()
+__C.tpu.mesh.data = -1
+__C.tpu.steps_per_dispatch = 1
+"""
+TRAIN_CASES, TRAIN_STEPS = 4, 32
+
+
+def phase_train(torch, tc, wi, workdir, gpu):
+    """``seg_train`` as a user runs it: four seeded CT-like cases, a
+    validation case, the template's config format, bf16, 32 steps of batch
+    8 x 96^3, two save points with validation through the folded forward."""
+    import csv
+    import numpy as np
+    from segmentation3d_tpu_torch.cli.seg_infer import main as seg_infer
+    from segmentation3d_tpu_torch.cli.seg_train import main as seg_train
+    from segmentation3d_tpu_torch.core.seg_train import train
+    from segmentation3d_tpu_torch.core.validation import validate_cases
+    from segmentation3d_tpu_torch.core.seg_infer import load_seg_model
+    from segmentation3d_tpu_torch.io import read_image
+    t = time.perf_counter()
+    d = os.path.join(workdir, "train")
+    os.makedirs(d)
+    lines, fg = [str(TRAIN_CASES)], []
+    for i in range(TRAIN_CASES):
+        img, seg = (os.path.join(d, f"case{i}_{k}.nii.gz") for k in ("ct", "seg"))
+        fg.append(float(label_case(img, seg, seed=10 + i).mean()))
+        lines += [img, seg]
+    train_txt = os.path.join(d, "train.txt")
+    with open(train_txt, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    val_img, val_seg = (os.path.join(d, f"val_{k}.nii.gz") for k in ("ct", "seg"))
+    label_case(val_img, val_seg, seed=20)
+    val_txt = os.path.join(d, "val.txt")
+    with open(val_txt, "w") as f:
+        f.write(f"1\n{val_img}\n{val_seg}\n")
+    save_dir = os.path.join(d, "model")
+    # epoch = batch x 8 / 4 cases: 32 steps reach epoch 64, saves at 32, 64
+    epochs = TRAIN_STEPS * BATCH // TRAIN_CASES
+    cfg = os.path.join(d, "config.py")
+    with open(cfg, "w") as f:
+        f.write(TRAIN_CONFIG.format(train=train_txt, save_dir=save_dir, val=val_txt,
+                                    epochs=epochs, save_epochs=epochs // 2,
+                                    crop=PATCH, batch=BATCH))
+    setup = time.perf_counter() - t
+
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the training path: counts reset just before, read just after
+    tc.thin_conv3d.launches = 0
+    wi.window_conv_i8.launches = 0
+    t0 = time.perf_counter()
+    train(cfg, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = (tc.thin_conv3d.launches, wi.window_conv_i8.launches)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(save_dir, "train_loss.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    with open(os.path.join(save_dir, "val_dice.csv")) as f:
+        val_rows = list(csv.DictReader(f))
+    n_val = len(val_rows)
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    # steady state: from the first loss readback (step 8: the cold start,
+    # the cases' first read, is behind it) to the last, save points out
+    (s0, t0f, w0), (s1, t1f, w1) = stats["flushes"][0], stats["flushes"][-1]
+    span = t1f - t0f - sum(stats["save_point_seconds"][:-1])
+    crops_s = (s1 - s0) * BATCH / span
+    wait_share = (w1 - w0) / span
+
+    # the last checkpoint's val Dice through the float32 nn.Module
+    model = load_seg_model(save_dir, torch.device(DEV))
+    dice_f32 = validate_cases(
+        model.net, val_txt, spacing=model.spacing, interpolation="LINEAR",
+        normalizers=model.normalizers, num_classes=2,
+        max_stride=model.max_stride, dtype=torch.float32)[0]
+    dice_bf16 = float(val_rows[-1]["val_dice"])
+    # chk_best and the last checkpoint through seg_infer --bf16
+    masks = {}
+    for which in ("best", "latest"):
+        out = os.path.join(d, f"infer_{which}")
+        res = seg_infer(["-i", val_img, "-m", save_dir, "-o", out, "--bf16",
+                         "--checkpoint", which])
+        mask = read_image(os.path.join(out, res[0][0], "seg.mha")).data
+        gt = read_image(val_seg).data
+        masks[which] = dict(shape=list(mask.shape), foreground=float(mask.mean()),
+                            dice_vs_label=float(2 * np.sum((mask == 1) & (gt == 1))
+                                                / max(1, np.sum(mask == 1) + np.sum(gt == 1))))
+        check(mask.shape == gt.shape, f"seg_infer --checkpoint {which}: mask shape")
+    # the CLI's rules on the card: --fold needs --folds
+    try:
+        seg_train(["-i", cfg, "--fold", "0"])
+        cli_refused = False
+    except SystemExit:
+        cli_refused = True
+    emit("train", cases=TRAIN_CASES, label_fraction=fg, steps=stats["steps"],
+         losses=losses, first4=first, last4=last, max_last_over_first=LOSS_FALL,
+         launches=dict(thin_conv3d=launches[0], window_conv_i8=launches[1]),
+         validation_forwards=n_val, val_dice_bf16_folded=dice_bf16,
+         val_dice_f32_module=dice_f32, max_val_dice_gap=VAL_DICE_GAP,
+         val_rows=val_rows, crops_per_s=crops_s, steady_steps=s1 - s0,
+         loop_seconds=stats["loop_seconds"], prefetch_wait_share=wait_share,
+         prefetch_wait_share_with_cold_start=(
+             stats["prefetch_wait_seconds"] / stats["loop_seconds"]),
+         save_point_seconds=stats["save_point_seconds"],
+         validation_seconds=stats["validation_seconds"], wall_seconds=wall,
+         setup_seconds=setup, max_memory_allocated=peak, infer=masks, gpu=gpu)
+    check(len(losses) == stats["steps"] == TRAIN_STEPS,
+          f"{len(losses)} loss rows, {stats['steps']} steps")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    check(last <= LOSS_FALL * first, f"loss did not fall: {first} -> {last}")
+    check(n_val == 2, f"{n_val} validation rows, expected 2")
+    check(launches == (20 * n_val, 0),
+          f"training launched (thin_conv3d, window_conv_i8) {launches}, "
+          f"expected ({20 * n_val}, 0)")
+    check(abs(dice_bf16 - dice_f32) <= VAL_DICE_GAP,
+          f"val Dice bf16 folded {dice_bf16} vs f32 module {dice_f32}")
+    check(os.path.isfile(os.path.join(save_dir, "checkpoints", "chk_best", "params.pth")),
+          "no chk_best")
+    check(cli_refused, "--fold without --folds was not refused")
+    return launches[0]
+
+
 def kernel_entry(name, source, replaces, launches, rows, peak_ops, ops_key):
     """One kernel's entry of the summary line: its per-site rows summed over
     one forward of a batch of 8 96^3 patches (each row times its launches
@@ -915,14 +1308,21 @@ def main():
         phase_tta(torch, tc, ctx, gpu)
         phase_c2f(torch, tc, wi, ctx, gpu)
         phase_vbnet(torch, tc, wi, ctx, gpu)
+        phase_train_step(torch, gpu)
+        launches_train = phase_train(torch, tc, wi, workdir, gpu)
 
+    thin = kernel_entry("thin_conv3d", "segmentation3d_tpu_torch/csrc/thin_conv3d.cu",
+                        "segmentation3d_tpu/ops/pallas_conv.py:174",
+                        ctx["launches"] + launches_train, sites, PEAK_BF16_FLOPS,
+                        "flops")
+    thin["launches_by_path"] = {"seg_infer --bf16": ctx["launches"],
+                                "seg_train (validation)": launches_train}
     print(gpu)
     print(json.dumps({"kernels": [
-        # the bf16 main path's 20 launches per forward; the epilogue
-        # variants' errors (int8 in steps) are on their own "kernel" lines
-        kernel_entry("thin_conv3d", "segmentation3d_tpu_torch/csrc/thin_conv3d.cu",
-                     "segmentation3d_tpu/ops/pallas_conv.py:174",
-                     ctx["launches"], sites, PEAK_BF16_FLOPS, "flops"),
+        # the bf16 main path's 20 launches per forward, and the training
+        # path's 20 per validation forward; the epilogue variants' errors
+        # (int8 in steps) are on their own "kernel" lines
+        thin,
         # the int8 main path's 19 launches per forward
         kernel_entry("window_conv_i8",
                      "segmentation3d_tpu_torch/csrc/window_conv_i8.cu",

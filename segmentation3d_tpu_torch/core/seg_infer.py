@@ -218,10 +218,12 @@ def build_forward(model: SegModel, dtype, device, fused=None, quant=None,
     """``patches -> probabilities`` for one model: the int8 forward
     (``quant``, calibrated on ``calib_paths`` when given), else the
     BN-folded kernel forward (``fused``; default: bf16 on a CUDA device),
-    else the ``nn.Module`` forward. A bottleneck net has no folded form:
-    it runs the module forward, and ``quant`` raises the JAX package's
-    error."""
-    if model.net.bottleneck:
+    else the ``nn.Module`` forward. A bottleneck net, or one whose
+    activation the kernel's epilogue lacks (leaky_relu), has no folded
+    form: it runs the module forward, and ``quant`` raises the JAX
+    package's error."""
+    from segmentation3d_tpu_torch.models.fused_vnet import FOLDED_ACTS
+    if model.net.bottleneck or model.net.act not in FOLDED_ACTS:
         if quant is not None:
             raise ValueError(
                 f"quant={quant!r} requires the packed-domain forward, which "

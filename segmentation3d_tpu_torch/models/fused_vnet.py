@@ -32,6 +32,9 @@ from segmentation3d_tpu_torch.ops.thin_conv import (
 )
 from segmentation3d_tpu_torch.utils.device import no_tf32
 
+#: the activations the kernel's epilogue (and the folded forward) applies
+FOLDED_ACTS = ("relu", "prelu")
+
 
 def _ncdhw(x):
     """[B,D,H,W,C] -> a [B,C,D,H,W] view (channels_last_3d strides)."""
@@ -120,6 +123,10 @@ def build_fused_forward(net: SegmentationNet, dtype=torch.bfloat16,
     if net.bottleneck:
         raise NotImplementedError("fused forward supports the standard "
                                   "(non-bottleneck) V-Net blocks")
+    if net.act not in FOLDED_ACTS:
+        # the JAX fused forward's _act has no leaky_relu either
+        raise NotImplementedError(f"fused forward supports the activations "
+                                  f"{FOLDED_ACTS}, not {net.act!r}")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"dtype must be bfloat16 or float32, got {dtype}")
     device = next(net.parameters()).device

@@ -14,15 +14,31 @@ are stored already flipped into ``ConvTranspose3d``'s convention.
 
 Public layout is channels-last, as in JAX: ``forward`` takes
 ``[B, D, H, W, in_channels]`` and returns per-class probabilities
-``[B, D, H, W, out_channels]`` in float32 (softmax over classes).
+``[B, D, H, W, out_channels]`` in float32 (softmax over classes; float64
+for a float64 net).
+
+Training follows flax: :class:`BatchNorm` normalizes by the batch's biased
+variance in float32 and moves its running statistics by 0.1 towards the
+batch's mean and biased variance, once per step even when ``remat`` (the
+JAX package's ``cfg.tpu.remat``: the down and up blocks recomputed in
+backward) runs its forward twice; :func:`init_like_flax_` draws flax's
+``he_normal`` weights; :func:`vnet_focal_init` sets the focal-loss head
+bias. Under ``torch.autocast(bfloat16)`` the convs run in bf16 and
+BatchNorm and the softmax in float32, as the flax net with ``dtype=bf16``.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+#: flax's truncated-normal correction: the std of a unit normal cut at +-2
+TRUNC_STD = 0.87962566103423978
 
 
 def max_stride() -> int:
@@ -31,11 +47,12 @@ def max_stride() -> int:
 
 
 class Activation(nn.Module):
-    """relu, or prelu with one learned slope ``alpha`` (init 0.25)."""
+    """relu, leaky_relu (slope 0.01), or prelu with one learned slope
+    ``alpha`` (init 0.25)."""
 
     def __init__(self, kind: str = "relu"):
         super().__init__()
-        if kind not in ("relu", "prelu"):
+        if kind not in ("relu", "prelu", "leaky_relu"):
             raise ValueError(f"unknown activation {kind!r}")
         self.kind = kind
         if kind == "prelu":
@@ -44,11 +61,91 @@ class Activation(nn.Module):
     def forward(self, x):
         if self.kind == "relu":
             return F.relu(x)
+        if self.kind == "leaky_relu":
+            return F.leaky_relu(x, 0.01)
         return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
 
 
+class _BatchStatsNorm(torch.autograd.Function):
+    """Train-mode normalization with flax's statistics: ``mean = E[x]``,
+    ``var = max(E[x^2] - E[x]^2, 0)`` (flax's fast variance, the biased
+    one), ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``, all in
+    float32. Its gradient is BatchNorm's (the fast variance is the variance),
+    so the backward is ATen's, from the saved input and statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = torch.mean(x, dims)
+        var = torch.clamp_min(torch.mean(x * x, dims) - mean * mean, 0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = torch.addcmul(bias.view(shape), x - mean.view(shape),
+                          (invstd * weight).view(shape))
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        gx, gw, gb = torch.ops.aten.native_batch_norm_backward(
+            gy.contiguous(), x, weight, None, None, mean, invstd, True, ctx.eps,
+            list(ctx.needs_input_grad[:3]))
+        return gx, gw, gb, None
+
+
+class BatchNorm(nn.BatchNorm3d):
+    """BatchNorm as flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
+    dtype=float32)`` computes it, with ``BatchNorm3d``'s parameter and
+    buffer names. The statistics and the normalization are float32 for a
+    bf16 or float32 input (float64 for float64); the output has the
+    input's type. In train mode the
+    batch is normalized by its mean and BIASED variance, taken as flax
+    takes it (:class:`_BatchStatsNorm`; one value per channel gives
+    variance 0, where ``BatchNorm3d`` raises) and, while ``update_stats``
+    is set, ``running = 0.9 * running + 0.1 * batch`` for the mean and that
+    variance (``BatchNorm3d`` moves ``running_var`` towards the unbiased
+    one)."""
+
+    def __init__(self, c):
+        super().__init__(c, eps=1e-5, momentum=0.1)
+        self.update_stats = True
+
+    def forward(self, x):
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        if not self.training:
+            y = F.batch_norm(x32, self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        y, mean, var = _BatchStatsNorm.apply(x32, self.weight, self.bias,
+                                             self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
 def _bn(c):
-    return nn.BatchNorm3d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm(c)
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """Within the block, BatchNorm layers of ``module`` leave their running
+    statistics alone (the recomputed forward of a checkpointed block)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    prev = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, p in zip(bns, prev):
+            m.update_stats = p
 
 
 class ConvBnAct(nn.Module):
@@ -156,7 +253,8 @@ class OutputBlock(nn.Module):
         self.proj = nn.Conv3d(out_channels, out_channels, 1)
 
     def forward(self, x, return_logits=False):
-        x = self.proj(self.conv(x)).to(torch.float32)
+        x = self.proj(self.conv(x))
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         return x if return_logits else torch.softmax(x, dim=1)
 
 
@@ -168,7 +266,8 @@ class SegmentationNet(nn.Module):
                  base_channels: int = 16,
                  down_convs: Sequence[int] = (1, 2, 3, 3),
                  up_convs: Sequence[int] = (3, 3, 2, 1),
-                 act: str = "relu", bottleneck: bool = False):
+                 act: str = "relu", bottleneck: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.in_channels = int(in_channels)
         self.out_channels = int(out_channels)
@@ -177,6 +276,7 @@ class SegmentationNet(nn.Module):
         self.up_convs = tuple(int(n) for n in up_convs)
         self.act = act
         self.bottleneck = bool(bottleneck)
+        self.remat = bool(remat)
         c = self.base_channels
         self.in_block = InputBlock(self.in_channels, c, act)
         for n in self.down_convs:
@@ -195,6 +295,16 @@ class SegmentationNet(nn.Module):
     def max_stride(self) -> int:
         return 2 ** len(self.down_convs)
 
+    def _block(self, block, *args):
+        """``block(*args)``; with ``remat`` in training, only its inputs are
+        kept for backward and its forward runs again there, its BatchNorm
+        statistics moved once."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return block(*args)
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_stats(block)))
+
     def forward(self, x, return_logits: bool = False):
         """``x [B, D, H, W, in_channels]`` -> ``[B, D, H, W, out_channels]``."""
         if x.shape[-1] != self.in_channels:
@@ -206,11 +316,46 @@ class SegmentationNet(nn.Module):
         skips = [x]
         for i, _ in enumerate(self.down_convs):
             c *= 2
-            x = getattr(self, f"down_{c}")(x)
+            x = self._block(getattr(self, f"down_{c}"), x)
             if i + 1 < len(self.down_convs):
                 skips.append(x)
         for _ in self.up_convs:
-            x = getattr(self, f"up_{c}")(x, skips.pop())
+            x = self._block(getattr(self, f"up_{c}"), x, skips.pop())
             c //= 2
         out = self.out_block(x, return_logits)
         return out.permute(0, 2, 3, 4, 1)
+
+
+def init_like_flax_(net: nn.Module, generator: torch.Generator | None = None):
+    """Initialize ``net`` as the flax V-Net initializes itself: every conv
+    and transposed-conv weight from flax's ``he_normal`` (a normal cut at
+    +-2 std, scaled to ``sqrt(2 / fan_in) / 0.8796``, ``fan_in`` = kernel
+    volume x input channels, as flax counts it for both), biases 0,
+    BatchNorm scale 1 and bias 0 with running mean 0 and variance 1, PReLU
+    alpha 0.25. Draws from ``generator`` (default: torch's global one)."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+                w = m.weight
+                cin = w.shape[0] if isinstance(m, nn.ConvTranspose3d) else w.shape[1]
+                fan_in = cin * w[0, 0].numel()
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+                w.mul_(math.sqrt(2.0 / fan_in) / TRUNC_STD)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.reset_parameters()
+            elif isinstance(m, Activation) and m.kind == "prelu":
+                m.alpha.fill_(0.25)
+    return net
+
+
+def vnet_focal_init(net: "SegmentationNet", obj_p: float = 0.01):
+    """Focal-loss head bias (JAX ``models/vnet.py:vnet_focal_init``): object
+    classes start at prior probability ``obj_p`` after the softmax,
+    ``bias = -log((1 - p) / p)``, background 0."""
+    with torch.no_grad():
+        bias = net.out_block.proj.bias
+        bias.fill_(-math.log((1.0 - obj_p) / obj_p))
+        bias[0] = 0.0
+    return net

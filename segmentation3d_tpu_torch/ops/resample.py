@@ -1,7 +1,8 @@
 """Fixed-spacing resampling on the device, with ITK's semantics.
 
 The port of ``segmentation3d_tpu/ops/resample.py`` (``resample_plan``,
-``resample_exec`` and the two cores under them):
+``resample_exec``, the two cores under them, ``resample_to_frame`` and
+``crop_at_world_center``):
 
 - **Separable path** (source and target share an axis-aligned direction):
   1-D linear/NN interpolation along each axis is a dense ``[out, in]``
@@ -22,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from segmentation3d_tpu_torch.ops.geometry import Frame
+from segmentation3d_tpu_torch.ops.geometry import Frame, frame_for_crop
 from segmentation3d_tpu_torch.utils.device import no_tf32
 
 LINEAR = "LINEAR"
@@ -164,3 +165,25 @@ def resample_exec(data: torch.Tensor, kind: str, coeffs, out_shape,
         return _separable_core(data, coeffs, out_shape, interp, fill, out_dtype)
     return _affine_core(data, coeffs, out_shape, interp, fill,
                         out_dtype=out_dtype)
+
+
+def resample_to_frame(data: torch.Tensor, src_frame: Frame, dst_frame: Frame,
+                      dst_size_xyz, interp: str = LINEAR, fill: float = 0.0,
+                      out_dtype=None):
+    """Resample ``data`` (living in ``src_frame``) onto a target frame and
+    grid, on ``data``'s device: ``[nz, ny, nx(, C)]`` for
+    ``dst_size_xyz = (nx, ny, nz)``."""
+    kind, coeffs, out_shape = resample_plan(src_frame, dst_frame, dst_size_xyz)
+    return resample_exec(data, kind, coeffs, out_shape, interp, fill, out_dtype)
+
+
+def crop_at_world_center(data: torch.Tensor, frame: Frame, center_world,
+                         out_size_xyz, out_spacing_xyz, interp: str = LINEAR,
+                         fill: float = 0.0):
+    """Fixed-spacing crop of ``out_size_xyz`` voxels centred on a physical
+    point, keeping ``frame``'s direction. Returns ``(tensor, crop_frame)``."""
+    crop_frame = frame_for_crop(frame, center_world, out_size_xyz,
+                                out_spacing_xyz)
+    out = resample_to_frame(data, frame, crop_frame, out_size_xyz,
+                            interp=interp, fill=fill)
+    return out, crop_frame

@@ -5,7 +5,12 @@ on-disk layout ``<save_dir>/checkpoints/chk_<epoch>/params.pth`` and the
 same ``params.pth`` dict (``epoch_idx``, ``batch_idx``, ``net``,
 ``max_stride``, ``state_dict``, ``_kernel_layouts``, ``spacing``,
 ``interpolation``, ``in_channels``, ``out_channels``, ``crop_normalizers``),
-so a checkpoint written by either package loads in the other.
+so a checkpoint written by either package loads in the other. Next to it a
+training run writes a copy of its config file and, in the port, the
+optimizer's state as ``opt_state.pt`` (a torch ``state_dict``): the JAX
+package reads ``opt_state.pkl`` (an optax tree) and finds none, so a JAX run
+resumed from a port checkpoint starts with fresh optimizer moments, and the
+port ignores the JAX package's ``opt_state.pkl`` likewise.
 
 The ``state_dict`` holds torch-named tensors in torch layouts (conv
 ``weight`` [O,I,kD,kH,kW], transposed-conv ``weight`` [I,O,kD,kH,kW] already
@@ -19,6 +24,7 @@ import glob
 import os
 import pickle
 import re
+import shutil
 
 import numpy as np
 import torch
@@ -116,14 +122,31 @@ def checkpoint_dir(save_dir: str, epoch_idx: int) -> str:
     return os.path.join(save_dir, "checkpoints", f"chk_{epoch_idx}")
 
 
+#: the port's optimizer-state file in a checkpoint directory
+OPT_STATE = "opt_state.pt"
+
+
+def _atomic_save(obj, path):
+    tmp_path = path + ".tmp"
+    torch.save(obj, tmp_path)
+    os.replace(tmp_path, path)
+
+
 def save_checkpoint(save_dir: str, epoch_idx: int, batch_idx: int, state_dict,
                     net_name: str, max_stride: int, in_channels: int,
                     out_channels: int, spacing, interpolation: str,
-                    crop_normalizers, extra: dict | None = None) -> str:
+                    crop_normalizers, extra: dict | None = None,
+                    config_file: str | None = None, opt_state=None,
+                    dir_name: str | None = None) -> str:
     """Write ``chk_<epoch>/params.pth`` from a torch ``state_dict`` (e.g.
-    ``net.state_dict()``) with the JAX package's payload. Returns the
-    checkpoint directory. The write is atomic (tmp file + ``os.replace``)."""
-    chk = checkpoint_dir(save_dir, epoch_idx)
+    ``net.state_dict()``) with the JAX package's payload (+ ``extra``
+    keys), a copy of ``config_file`` and ``opt_state`` (any torch-saveable
+    object) as ``opt_state.pt``. ``dir_name`` names the directory instead
+    (``chk_best``: a non-numeric name the latest-checkpoint scan skips).
+    Returns the checkpoint directory. Writes are atomic (tmp file +
+    ``os.replace``)."""
+    chk = os.path.join(save_dir, "checkpoints", dir_name) if dir_name \
+        else checkpoint_dir(save_dir, epoch_idx)
     os.makedirs(chk, exist_ok=True)
     state = {k: v.detach().to("cpu").contiguous() for k, v in state_dict.items()}
     payload = {
@@ -141,11 +164,46 @@ def save_checkpoint(save_dir: str, epoch_idx: int, batch_idx: int, state_dict,
     }
     if extra:
         payload.update(extra)
-    params_path = os.path.join(chk, "params.pth")
-    tmp_path = params_path + ".tmp"
-    torch.save(payload, tmp_path)
-    os.replace(tmp_path, params_path)
+    _atomic_save(payload, os.path.join(chk, "params.pth"))
+    if opt_state is not None:
+        _atomic_save(opt_state, os.path.join(chk, OPT_STATE))
+    if config_file and os.path.isfile(config_file):
+        shutil.copy(config_file, os.path.join(chk, os.path.basename(config_file)))
     return chk
+
+
+def prune_checkpoints(save_dir: str, keep: int) -> list[str]:
+    """Delete all but the newest ``keep`` loadable ``chk_<n>`` directories
+    (``cfg.train.keep_checkpoints``; 0 keeps every one). Non-numeric names
+    (``chk_best``) are never touched. Returns the removed directories."""
+    if not keep or keep <= 0:
+        return []
+    candidates = []
+    for d in glob.glob(os.path.join(save_dir, "checkpoints", "chk_*")):
+        m = re.match(r".*chk_(\d+)$", d)
+        if m and os.path.isfile(os.path.join(d, "params.pth")):
+            candidates.append((int(m.group(1)), d))
+    candidates.sort()
+    doomed = [d for _, d in candidates[:-keep]]
+    for d in doomed:
+        shutil.rmtree(d)
+    return doomed
+
+
+def load_checkpoint(chk_dir: str, net: torch.nn.Module) -> dict:
+    """Load a checkpoint's weights into ``net`` (strictly) and return its
+    payload."""
+    payload = load_checkpoint_payload(chk_dir)
+    net.load_state_dict(payload["state_dict"], strict=True)
+    return payload
+
+
+def load_opt_state(chk_dir: str):
+    """The ``opt_state.pt`` a port training run saved, or None."""
+    path = os.path.join(chk_dir, OPT_STATE)
+    if not os.path.isfile(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_checkpoint_payload(chk_dir: str) -> dict:

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of segmentation3d_tpu_torch
-(and chip_smoke.py) loads neither jax nor any module of the JAX package."""
+(and chip_smoke.py), and loading its config template, loads neither jax nor
+any module of the JAX package."""
 import os
 import subprocess
 import sys
@@ -10,6 +11,11 @@ SCRIPT = r"""
 import importlib, pkgutil, sys
 import segmentation3d_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+# the config template is a config file (it imports easydict and
+# segmentation3d.*, which only load_config provides): loaded, not imported
+from segmentation3d_tpu_torch.utils.file_io import load_config
+load_config(pkg.__path__[0] + "/config/template_config.py")
+names.remove("segmentation3d_tpu_torch.config.template_config")
 for n in names:
     importlib.import_module(n)
 import chip_smoke
@@ -24,7 +30,12 @@ print(",".join(names), "bad:" + ",".join(bad))
 MODULES = ["core.seg_infer", "core.infer_engine", "core.coarse_to_fine",
            "models.vnet", "models.vbnet", "models.fused_vnet", "models.quant_vnet",
            "ops.thin_conv", "ops.window_i8", "ops.conv_plan", "ops.cuda_build",
-           "cli.seg_infer", "utils.model_io"]
+           "cli.seg_infer", "utils.model_io",
+           "config", "config.config", "utils.file_io", "losses", "losses.dice",
+           "losses.focal", "dataloader", "dataloader.sampler",
+           "dataloader.dataset", "ops.resample", "ops.elastic",
+           "core.validation", "core.seg_train", "core.folds",
+           "utils.plotting", "cli.seg_train"]
 
 
 def test_port_imports_no_jax():
@@ -34,6 +45,6 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     names, bad = res.stdout.strip().split(" ", 1)
     names = names.split(",")
-    assert len(names) >= 17  # every module of the port was imported
+    assert len(names) >= 30  # every module of the port was imported
     assert {f"segmentation3d_tpu_torch.{m}" for m in MODULES} <= set(names)
     assert bad == "bad:", f"the port pulled in: {bad}"

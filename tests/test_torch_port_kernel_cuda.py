@@ -302,3 +302,27 @@ def test_pipeline_on_card_matches_one_case_at_a_time(cuda_device, tmp_path):
             a, b = (read_image(str(tmp_path / r / name / f)).data
                     for r in ("all", "one"))
             np.testing.assert_array_equal(a, b)
+
+
+# in-training validation runs the folded forward on one whole volume (up to
+# 256^3) or on 64-plane full-XY slabs, batch 1: the largest grids and TMA
+# boxes the kernel meets
+VALIDATION_SITES = [((1, 240, 224, 224), 32, 32, "relu"),
+                    ((1, 256, 256, 256), 32, 32, "relu"),
+                    ((1, 64, 512, 512), 32, 2, "none")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cin,cout,tail", VALIDATION_SITES)
+def test_kernel_matches_plain_at_validation_sites(cuda_device, shape, cin, cout, tail):
+    g = torch.Generator(device=cuda_device).manual_seed(cin + cout)
+    x = torch.randn(*shape, cin, device=cuda_device, generator=g).to(torch.bfloat16)
+    w = torch.randn(3, 3, 3, cin, cout, device=cuda_device, generator=g) \
+        * (2.0 / (27 * cin)) ** 0.5
+    b = torch.randn(cout, device=cuda_device, generator=g) * 0.1
+    got = tc.thin_conv3d(x, w, b, act="relu", residual=tail)
+    ref = tc.thin_conv3d_reference(x, w, b, act="relu", residual=tail)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == shape + (cout,)
+    assert (got.float() - ref.float()).abs().max().item() <= \
+        0.05 * ref.float().abs().max().item()

@@ -25,25 +25,34 @@ NVIDIA GPU:
    the mask depends on the forward: the two masks must agree on >= 98% of
    voxels, with a foreground Dice and a largest probability gap within
    limits;
-5. int8 main path: ``seg_infer --int8`` on the same case and net, counting
+5. formats: the same case written as a DICOM series of 240 uncompressed
+   files and as a gzipped ``.nrrd`` reads to the NIfTI voxels exactly (the
+   frames within 1e-6); ``seg_infer --bf16`` on each launches
+   ``thin_conv3d`` 20 times per batch and gives 4's mask on >= 99.9% of
+   voxels; a 16-slice slab written as an RLE and as a JPEG Lossless series
+   reads back exactly (decode ms per slice; the native JPEG scan decode
+   equals the Python loop on one slice); ``seg_eval`` scores both masks
+   against 4's (foreground Dice >= 0.999). The host codec (``g++``) is
+   built before any phase and its build (libdeflate or zlib-only) printed;
+6. int8 main path: ``seg_infer --int8`` on the same case and net, counting
    both kernels' launches, then ``--int8`` and ``--int8 --int8_calib`` held
    against the float32 run as in 4;
-6. pipeline: ``--bf16`` over a folder of three cases (the main case, a
+7. pipeline: ``--bf16`` over a folder of three cases (the main case, a
    second seed, a 512x512x160 case) through the pipelined case loop; the
    main case's mask must equal 4's, and volumes/min over the batch is
-   printed beside the single case's;
-7. ensemble: ``-m a -m b --bf16`` against the float32 ensemble, and
+   printed beside the single case's and the read-ahead's decode threads;
+8. ensemble: ``-m a -m b --bf16`` against the float32 ensemble, and
    ``-m a -m a`` against 4's mask;
-8. tta: ``--bf16 --tta all`` against float32 ``--tta all``;
-9. c2f: ``--fine_model`` with a seeded 4 mm coarse net, ``--bf16`` and
+9. tta: ``--bf16 --tta all`` against float32 ``--tta all``;
+10. c2f: ``--fine_model`` with a seeded 4 mm coarse net, ``--bf16`` and
    ``--int8`` against float32;
-10. vbnet: a seeded full-width VB-Net, ``--bf16`` (the nn.Module, no kernel
+11. vbnet: a seeded full-width VB-Net, ``--bf16`` (the nn.Module, no kernel
    launch) against float32;
-11. train_step: one SGD step of a seeded full-width V-Net on a seeded
+12. train_step: one SGD step of a seeded full-width V-Net on a seeded
    2 x 64^3 batch on the card and on the CPU, in float32 (TF32 off) and in
    float64 (loss, every update, every BatchNorm buffer), then the median step time at
    8 x 96^3 in float32 and bf16 beside its bound;
-12. train: ``seg_train`` on four seeded CT-like 256x256x160 cases with a
+13. train: ``seg_train`` on four seeded CT-like 256x256x160 cases with a
    two-organ label and one validation case (bf16, batch 8 x 96^3, 32
    steps, two save points): the loss falls, ``thin_conv3d`` launches 20
    times per validation forward and ``window_conv_i8`` never, the folded
@@ -640,8 +649,8 @@ def phase_main(torch, tc, workdir, gpu):
     check(dprob <= DPROB_MAX, f"bf16/f32 max |dprob| {dprob} > {DPROB_MAX}")
     return dict(launches=launches, run=run, f32=f32, body=body, ct=ct,
                 n_batches=n_batches, model_dir=model_dir, norm=norm,
-                bf16_mask=first["mask"], serial=second, workdir=workdir,
-                part=part)
+                bf16_mask=first["mask"], bf16_out=first["out"], serial=second,
+                workdir=workdir, part=part)
 
 
 def phase_main_int8(torch, tc, wi, ctx, gpu):
@@ -686,6 +695,129 @@ def phase_main_int8(torch, tc, wi, ctx, gpu):
     return launches[1]
 
 
+#: formats phase: agreement of the DICOM and NRRD runs' masks with the NIfTI
+#: run's (their frames are stored as decimal strings, NIfTI's as float32, so
+#: the grids may differ in the last bits), and the slab of the compressed
+#: series (their encoders are pure Python)
+FORMAT_AGREE_MIN = 0.999
+FORMAT_DICE_MIN = 0.999
+FRAME_TOL = 1e-6
+SLAB = 16
+
+
+def frame_gap(a, b):
+    """Largest absolute difference of two frames' origin, spacing and
+    direction."""
+    import numpy as np
+    return float(max(np.abs(np.asarray(getattr(a, k)) - np.asarray(getattr(b, k))).max()
+                     for k in ("origin", "spacing", "direction")))
+
+
+def phase_formats(torch, tc, ctx, gpu):
+    """The main case as a DICOM series of 240 uncompressed files and as a
+    gzipped .nrrd: each reads to the NIfTI voxels exactly (frames within
+    FRAME_TOL), runs ``seg_infer --bf16`` with 20 x 23 launches and gives
+    the NIfTI run's mask on >= FORMAT_AGREE_MIN of voxels; a 512x512 slab
+    as an RLE and a JPEG Lossless series reads back exactly, the native
+    JPEG scan decode equals the Python loop on one slice; ``seg_eval``
+    scores both masks against the NIfTI run's."""
+    import csv
+    import numpy as np
+    from segmentation3d_tpu_torch.cli.seg_eval import main as seg_eval
+    from segmentation3d_tpu_torch.io import Volume, dicom, read_image, write_image
+    from segmentation3d_tpu_torch.io import jpeg_lossless as jl
+    run, n_batches, workdir = ctx["run"], ctx["n_batches"], ctx["workdir"]
+    ref = read_image(ctx["ct"])
+    inputs = {"dicom": os.path.join(workdir, "ct_dicom"),
+              "nrrd": os.path.join(workdir, "ct_nrrd.nrrd")}
+    masks = {}
+    for fmt, path in inputs.items():
+        t = time.perf_counter()
+        if fmt == "dicom":
+            dicom.write_dicom_series(path, ref.data, ref.frame)
+        else:
+            write_image(Volume(ref.data, ref.frame), path)
+        written = time.perf_counter() - t
+        t = time.perf_counter()
+        vol = read_image(path)
+        read_s = time.perf_counter() - t
+        check(vol.data.shape == ref.data.shape and np.array_equal(vol.data, ref.data),
+              f"{fmt}: voxels differ from the NIfTI case's")
+        gap = frame_gap(vol.frame, ref.frame)
+        check(gap <= FRAME_TOL, f"{fmt}: frame {gap} from the NIfTI case's")
+        del vol
+        # this format's path: counts reset just before, read just after
+        tc.thin_conv3d.launches = 0
+        r = run(f"bf16_{fmt}", ["--bf16"], inputs=["-i", path, "-m", ctx["model_dir"]])
+        launches = tc.thin_conv3d.launches
+        differ = int(np.sum(r["mask"] != ctx["bf16_mask"]))
+        agree = 1.0 - differ / r["mask"].size
+        masks[fmt] = (r, launches)
+        emit("formats", input=fmt, launches=launches, patch_batches=n_batches,
+             write_seconds=written, read_image_seconds=read_s, frame_gap=gap,
+             voxels_differing=differ, agreement=agree, min_agreement=FORMAT_AGREE_MIN,
+             seconds=r["wall"], stages=r["stages"], volumes_per_min=60.0 / r["wall"],
+             files=len(os.listdir(path)) if fmt == "dicom" else 1, gpu=gpu)
+        check(launches == 20 * n_batches,
+              f"{fmt}: thin_conv3d launched {launches} times, expected 20 x {n_batches}")
+        check(agree >= FORMAT_AGREE_MIN,
+              f"{fmt}: mask agrees with the NIfTI run's on {agree} < {FORMAT_AGREE_MIN}")
+
+    slab = ref.data[:SLAB]
+    for syntax in ("rle", "jpeg_lossless"):
+        folder = os.path.join(workdir, f"slab_{syntax}")
+        t = time.perf_counter()
+        dicom.write_dicom_series(folder, slab, ref.frame, compress=syntax)
+        encode_s = time.perf_counter() - t
+        files = sorted(os.path.join(folder, f) for f in os.listdir(folder))
+        parsed = [dicom._read_file(p) for p in files]
+        t = time.perf_counter()
+        for e, p in zip(parsed, files):
+            dicom._file_slices(e, p)
+        decode_ms = 1e3 * (time.perf_counter() - t) / len(files)
+        back = read_image(folder).data
+        check(np.array_equal(back, slab), f"{syntax}: slab does not read back exactly")
+        extra = {}
+        if syntax == "jpeg_lossless":
+            blob = b"".join(parsed[0][dicom.TAG_PIXEL_DATA])
+            info = jl._parse(blob)
+            f = info["frame"]
+            luts = jl._build_lut(*info["huff"][(0, info["scomps"][0]["td"])])
+            args = (blob[info["scan_at"]:], *luts, f["width"], f["height"],
+                    f["precision"], info["predictor"], info["pt"], info["ri"])
+            t = time.perf_counter()
+            native_scan = jl._decode_scan_native(*args)
+            extra["native_scan_ms"] = 1e3 * (time.perf_counter() - t)
+            t = time.perf_counter()
+            python_scan = jl._decode_scan_py(*args)
+            extra["python_scan_ms"] = 1e3 * (time.perf_counter() - t)
+            check(np.array_equal(native_scan, python_scan),
+                  "the native JPEG scan decode differs from the Python loop")
+        emit("formats_slab", syntax=syntax, slices=len(files), shape=list(slab.shape),
+             encode_seconds=encode_s, decode_ms_per_slice=decode_ms,
+             bytes=sum(os.path.getsize(p) for p in files), **extra, gpu=gpu)
+
+    pairs = os.path.join(workdir, "eval_pairs.csv")
+    nifti_mask = os.path.join(ctx["bf16_out"], "seg.mha")
+    with open(pairs, "w") as f:
+        f.write("pred,gt\n" + "".join(
+            f"{os.path.join(r['out'], 'seg.mha')},{nifti_mask}\n"
+            for r, _ in masks.values()))
+    scores = os.path.join(workdir, "eval.csv")
+    t = time.perf_counter()
+    seg_eval(["-i", pairs, "-o", scores])
+    eval_s = time.perf_counter() - t
+    with open(scores, newline="") as f:
+        rows = [r for r in csv.DictReader(f) if r["class"] == "1"]
+    dice = {fmt: float(r["dice"]) for fmt, r in zip(masks, rows)}
+    emit("formats_eval", foreground_dice=dice, min_dice=FORMAT_DICE_MIN,
+         seconds=eval_s, gpu=gpu)
+    check(len(rows) == len(masks), f"seg_eval scored {len(rows)} of {len(masks)} masks")
+    for fmt, d in dice.items():
+        check(d >= FORMAT_DICE_MIN, f"{fmt}: foreground Dice {d} < {FORMAT_DICE_MIN}")
+    return {f"seg_infer --bf16 ({fmt})": n for fmt, (_, n) in masks.items()}
+
+
 def check_gaps(tag, gaps, dice_min, dprob_max):
     """Fail unless ``gaps`` (:func:`mask_gaps`, the float32 run first) are
     within the limits and the float32 foreground holds its share of the
@@ -716,6 +848,7 @@ def phase_pipeline(torch, tc, ctx, gpu):
     import shutil
     import numpy as np
     from segmentation3d_tpu_torch.cli.seg_infer import main as seg_infer
+    from segmentation3d_tpu_torch.core.seg_infer import default_decoders
     from segmentation3d_tpu_torch.io import read_image
     folder = os.path.join(ctx["workdir"], "pipeline_in")
     os.makedirs(folder)
@@ -755,7 +888,7 @@ def phase_pipeline(torch, tc, ctx, gpu):
          serial_stages=serial["stages"], main_case_voxels_differing=differ,
          foreground_fraction_of_body=fg, max_memory_allocated=peak,
          serial_max_memory_allocated=serial["peak"], cpu_count=os.cpu_count(),
-         setup_seconds=setup, gpu=gpu)
+         decode_threads=default_decoders(), setup_seconds=setup, gpu=gpu)
     check(differ == 0, f"the pipelined main case differs from the main path's "
           f"bf16 mask in {differ} voxels")
     for name in ("b_seed1", "c_short"):
@@ -1284,6 +1417,7 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from segmentation3d_tpu_torch import native
     from segmentation3d_tpu_torch.ops import cuda_build
     from segmentation3d_tpu_torch.ops import thin_conv as tc
     from segmentation3d_tpu_torch.ops import window_i8 as wi
@@ -1297,11 +1431,19 @@ def main():
     check(set(libs) >= {"thin_conv3d", "window_conv_i8"}, f"built {sorted(libs)}")
     emit("build", seconds=time.perf_counter() - t,
          libraries={n: os.path.relpath(p, HERE) for n, p in libs.items()})
+    # the host codec (g++), before any read or write uses it
+    t = time.perf_counter()
+    codec = native.codec()
+    emit("codec_build", status=codec.status, seconds=time.perf_counter() - t,
+         library=codec.path and os.path.relpath(codec.path, HERE),
+         libdeflate=codec.has_gzip)
+    check(codec.lib is not None, f"the host codec did not build: {codec.status}")
 
     sites = phase_kernels(torch, tc)
     sites_i8 = phase_kernels_i8(torch, wi)
     with tempfile.TemporaryDirectory() as workdir:
         ctx = phase_main(torch, tc, workdir, gpu)
+        launches_formats = phase_formats(torch, tc, ctx, gpu)
         launches_i8 = phase_main_int8(torch, tc, wi, ctx, gpu)
         phase_pipeline(torch, tc, ctx, gpu)
         phase_ensemble(torch, tc, ctx, gpu)
@@ -1313,14 +1455,15 @@ def main():
 
     thin = kernel_entry("thin_conv3d", "segmentation3d_tpu_torch/csrc/thin_conv3d.cu",
                         "segmentation3d_tpu/ops/pallas_conv.py:174",
-                        ctx["launches"] + launches_train, sites, PEAK_BF16_FLOPS,
-                        "flops")
-    thin["launches_by_path"] = {"seg_infer --bf16": ctx["launches"],
+                        ctx["launches"] + sum(launches_formats.values())
+                        + launches_train, sites, PEAK_BF16_FLOPS, "flops")
+    thin["launches_by_path"] = {"seg_infer --bf16": ctx["launches"], **launches_formats,
                                 "seg_train (validation)": launches_train}
     print(gpu)
     print(json.dumps({"kernels": [
-        # the bf16 main path's 20 launches per forward, and the training
-        # path's 20 per validation forward; the epilogue variants' errors
+        # the bf16 main path's 20 launches per forward (NIfTI, DICOM and
+        # NRRD input), and the training path's 20 per validation forward;
+        # the epilogue variants' errors
         # (int8 in steps) are on their own "kernel" lines
         thin,
         # the int8 main path's 19 launches per forward

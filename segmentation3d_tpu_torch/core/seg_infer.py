@@ -9,11 +9,12 @@ The port of ``segmentation3d_tpu/core/seg_infer.py``. Per case:
     maps, input copy)
 
 Cases run as a pipeline (:class:`_ReadAhead`, :class:`_WriteBehind`). While
-the calling thread prepares and forwards case N on the device, a decode
-thread reads case N+1 and an upload thread copies its voxels, in their
-stored dtype and through pinned memory, to the device on a CUDA stream of
-its own; a materialize thread copies case N-1's mask back on another stream
-and runs the connected-component cleanup, and a write thread writes it.
+the calling thread prepares and forwards case N on the device, decode
+threads read the next cases, several at once, and an upload thread copies
+case N+1's voxels, in their stored dtype and through pinned memory, to the
+device on a CUDA stream of its own; a materialize thread copies case N-1's
+mask back on another stream and runs the connected-component cleanup, and
+a write thread writes it.
 Every queue holds two cases. The calling thread's work is timed with CUDA
 events, so it never waits for the device to time a stage.
 
@@ -32,12 +33,14 @@ its slow host link, its session cache and its multi-host case slicing.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
 import time
 import traceback
-from collections import Counter
+from collections import Counter, deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -543,25 +546,52 @@ def _patch_and_stride(partition_type, partition_size, partition_stride,
 # the pipeline
 # ---------------------------------------------------------------------------
 
+#: most decode threads a read-ahead starts: a cap on memory, since with the
+#: queues at most ``depth + decoders + 3`` cases are held on the host at once
+#: (a 512x512x240 DICOM case is 252 MB as float32)
+MAX_DECODERS = 4
+
+
+def default_decoders() -> int:
+    """The read-ahead's decode threads: one per core, at most
+    :data:`MAX_DECODERS`."""
+    return max(1, min(MAX_DECODERS, os.cpu_count() or 1))
+
+
+def _read_case(image_paths):
+    """Read one case's modalities: ``(vols, error, start, seconds)``; an
+    unreadable case returns its error, surfaced at consumption time."""
+    t0 = time.perf_counter()
+    try:
+        vols, err = [read_image(p) for p in image_paths], None
+    except Exception as e:
+        vols, err = None, e
+    return vols, err, t0, time.perf_counter() - t0
+
+
 class _ReadAhead:
     """Background case reader as a two-stage pipeline on separate threads:
 
-      decode thread:  file read + gunzip + parse (``read_image``)
+      decode threads: file read + gunzip + parse (``read_image``) of up to
+                      ``decoders`` cases at once (ctypes calls and zlib
+                      release the GIL), handed on in input order
       upload thread:  the voxels, in their stored dtype, into pinned memory
                       and onto the device by an asynchronous copy on a CUDA
                       stream of its own, waited for before hand-over
 
-    so the decode of case N+2, the upload of case N+1 and the device work of
-    case N overlap. Iterating yields ``(paths, vols, devs, read_error,
-    (start, seconds))``: ``devs`` the modalities' device tensors (the
-    consumer marks them used by its own stream, :func:`_adopt`), ``start``
-    the ``perf_counter`` at which the case's read began, ``seconds`` the
-    time of both stages. An unreadable case yields its error; one failed
-    case must not abort the batch, so the caller decides. An error that
-    ends a thread is raised to the consumer instead of ending the cases."""
+    so the decodes of the next cases, the upload of case N+1 and the device
+    work of case N overlap. Iterating yields ``(paths, vols, devs,
+    read_error, (start, seconds))``: ``devs`` the modalities' device tensors
+    (the consumer marks them used by its own stream, :func:`_adopt`),
+    ``start`` the ``perf_counter`` at which the case's read began,
+    ``seconds`` the time of both stages. An unreadable case yields its
+    error; one failed case must not abort the batch, so the caller decides.
+    An error that ends a thread is raised to the consumer instead of ending
+    the cases."""
 
     def __init__(self, cases, device, depth=2):
         self.device = device
+        self.decoders = default_decoders()
         self.q = queue.Queue(maxsize=max(1, depth))
         self._uq = queue.Queue(maxsize=1)
         self._stop = threading.Event()
@@ -573,16 +603,21 @@ class _ReadAhead:
         self._ut.start()
 
     def _decode(self, cases):
+        """Keep ``decoders`` reads in flight and hand them on in order."""
         try:
-            for image_paths in cases:
-                if self._stop.is_set():
-                    break
-                t0 = time.perf_counter()
-                try:
-                    vols, err = [read_image(p) for p in image_paths], None
-                except Exception as e:  # surfaced at consumption time
-                    vols, err = None, e
-                self._uq.put((image_paths, vols, err, t0, time.perf_counter() - t0))
+            todo = iter(cases)
+            with ThreadPoolExecutor(self.decoders, "read-ahead") as pool:
+                pending = deque(
+                    (paths, pool.submit(_read_case, paths))
+                    for paths in itertools.islice(todo, self.decoders))
+                while pending and not self._stop.is_set():
+                    paths, read = pending.popleft()
+                    self._uq.put((paths, *read.result()))
+                    nxt = next(todo, None)
+                    if nxt is not None:
+                        pending.append((nxt, pool.submit(_read_case, nxt)))
+                for _, read in pending:  # stopped: drop the reads not begun
+                    read.cancel()
         except BaseException as e:  # raised again by __next__
             self.error = e
             raise
@@ -625,8 +660,9 @@ class _ReadAhead:
         return item
 
     def close(self):
-        """Stop reading and let both threads end: a loop that was aborted,
-        or a thread that died, leaves cases in the queues."""
+        """Stop reading and let every thread end (a decode in progress
+        finishes first): a loop that was aborted, or a thread that died,
+        leaves cases in the queues."""
         self._stop.set()
         for thread, q in ((self._ut, self.q), (self._dt, self._uq)):
             while thread.is_alive():

@@ -10,7 +10,9 @@ ITK-convention (LPS) :class:`~segmentation3d_tpu_torch.ops.geometry.Frame`.
 
 NIfTI affines are RAS; ITK frames are LPS — we convert with the standard
 ``diag(-1,-1,1)`` flip so .nii and .mha round-trips agree. The port's own
-copy of ``segmentation3d_tpu/io/nifti.py``; ``.gz`` goes through zlib.
+copy of ``segmentation3d_tpu/io/nifti.py``. ``.gz`` is read and written in one
+shot through libdeflate (:mod:`segmentation3d_tpu_torch.native`) when the
+codec's libdeflate build loaded, else through zlib.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import zlib
 
 import numpy as np
 
+from segmentation3d_tpu_torch import native
 from segmentation3d_tpu_torch.ops.geometry import Frame
 
 _RAS2LPS = np.diag([-1.0, -1.0, 1.0])
@@ -42,7 +45,8 @@ _GZIP_LEVEL = 1
 class _OneShotGzipWriter:
     """File-like ``.gz`` writer that buffers the payload (zero-copy: the
     memoryviews keep their exporters alive) and compresses it in ONE pass
-    at close, so an error mid-write leaves no truncated ``.gz`` behind."""
+    at close (libdeflate, else zlib), so an error mid-write leaves no
+    truncated ``.gz`` behind."""
 
     def __init__(self, path, level):
         self._path = path
@@ -58,7 +62,7 @@ class _OneShotGzipWriter:
         if self.closed:
             return
         self.closed = True
-        blob = gzip.compress(b"".join(self._parts), compresslevel=self._level)
+        blob = gzip_bytes(b"".join(self._parts), self._level)
         with open(self._path, "wb") as f:
             f.write(blob)
 
@@ -79,14 +83,17 @@ def _open(path, mode="rb"):
     return open(path, mode)
 
 
-def _read_bytes(path) -> bytes:
-    """Whole file -> decompressed bytes. For .gz this is a one-shot zlib
-    decompress of the full compressed blob (faster than ``gzip.open``'s
-    chunked stream), member by member."""
-    with open(path, "rb") as f:
-        raw = f.read()
-    if not str(path).endswith(".gz"):
-        return raw
+def gzip_bytes(payload, level=_GZIP_LEVEL) -> bytes:
+    """One ``.gz`` member of ``payload``: libdeflate, else zlib."""
+    blob = native.gzip_compress(payload, level)
+    return blob if blob is not None else gzip.compress(payload, compresslevel=level)
+
+
+def zlib_gunzip(raw: bytes) -> bytes:
+    """Decompress a whole ``.gz`` blob through zlib, member by member: a
+    truncated member returns what decoded (the caller's size check fails),
+    a corrupt one raises ``zlib.error``, zero padding after the members
+    (block-aligned archives) ends the data, as in :func:`native.gunzip`."""
     out = []
     while raw:
         d = zlib.decompressobj(wbits=31)
@@ -95,7 +102,27 @@ def _read_bytes(path) -> bytes:
         if not d.eof:
             break  # truncated member: return what decoded; frombuffer errors
         raw = d.unused_data  # multi-member .gz: keep going
+        if raw.count(0) == len(raw):
+            break
     return out[0] if len(out) == 1 else b"".join(out)
+
+
+def gunzip(raw: bytes) -> bytes:
+    """Decompress a whole ``.gz`` blob: libdeflate in one shot when the
+    codec's libdeflate build loaded and accepts the data, else (and for
+    data it rejects, so that zlib reports it) :func:`zlib_gunzip`."""
+    fast = native.gunzip(raw)
+    return fast if fast is not None else zlib_gunzip(raw)
+
+
+def _read_bytes(path) -> bytes:
+    """Whole file -> decompressed bytes (one-shot :func:`gunzip` for .gz,
+    faster than ``gzip.open``'s chunked stream)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if not str(path).endswith(".gz"):
+        return raw
+    return gunzip(raw)
 
 
 class _Hdr:

@@ -7,8 +7,8 @@ volume is simply a numpy ``[z,y,x]`` array paired with a
 :class:`~segmentation3d_tpu_torch.ops.geometry.Frame`. Voxel data stays in
 numpy on the host; it is converted to float32 before it reaches the device
 (torch's uint16/int16 support is patchy). The port's own copy of
-``segmentation3d_tpu/io/volume.py``, for NIfTI (.nii, .nii.gz, .hdr/.img)
-and MetaImage (.mha, .mhd).
+``segmentation3d_tpu/io/volume.py``: NIfTI (.nii, .nii.gz, .hdr/.img),
+MetaImage (.mha, .mhd), NRRD (.nrrd, .nhdr) and DICOM series (a directory).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import os
 
 import numpy as np
 
-from segmentation3d_tpu_torch.io import mha, nifti
+from segmentation3d_tpu_torch.io import dicom, mha, nifti, nrrd
 from segmentation3d_tpu_torch.ops.geometry import Frame
 
 
@@ -36,10 +36,9 @@ class Volume:
 
 _NIFTI_EXTS = (".nii", ".nii.gz")
 _MHA_EXTS = (".mha", ".mhd")
+_NRRD_EXTS = (".nrrd", ".nhdr")
 # two-file pairs: NIfTI-1 "ni1" or plain Analyze 7.5 headers (io.nifti)
 _PAIR_EXTS = (".hdr", ".img", ".img.gz")
-# formats the JAX package reads that this port does not yet
-_NOT_PORTED = (".nrrd", ".nhdr")
 
 
 def _ext(path: str) -> str:
@@ -51,17 +50,19 @@ def _ext(path: str) -> str:
 
 
 def read_image(path, dtype=None) -> Volume:
-    """Read a volume from .nii/.nii.gz/.hdr/.img/.mha/.mhd."""
+    """Read a volume from .nii/.nii.gz/.hdr/.img/.mha/.mhd/.nrrd/.nhdr or a
+    DICOM series directory."""
     ext = _ext(path)
     if ext in _NIFTI_EXTS:
         data, frame = nifti.read_nifti(path)
     elif ext in _MHA_EXTS:
         data, frame = mha.read_mha(path)
+    elif ext in _NRRD_EXTS:
+        data, frame = nrrd.read_nrrd(path)
     elif ext in _PAIR_EXTS:
         data, frame = nifti.read_hdr_img(path)
-    elif ext in _NOT_PORTED or os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: NRRD and DICOM input are not ported yet")
+    elif os.path.isdir(path):
+        data, frame = dicom.read_dicom_series(path)
     else:
         raise ValueError(f"unsupported image format: {path}")
     if dtype is not None:
@@ -77,9 +78,9 @@ def write_image(vol: Volume, path) -> None:
         nifti.write_nifti(path, vol.data, vol.frame)
     elif ext in _MHA_EXTS:
         mha.write_mha(path, vol.data, vol.frame)
+    elif ext in _NRRD_EXTS:
+        nrrd.write_nrrd(path, vol.data, vol.frame)
     elif ext in _PAIR_EXTS:
         nifti.write_hdr_img(path, vol.data, vol.frame)
-    elif ext in _NOT_PORTED:
-        raise NotImplementedError(f"{path}: NRRD output is not ported yet")
     else:
         raise ValueError(f"unsupported image format: {path}")

@@ -35,7 +35,10 @@ MODULES = ["core.seg_infer", "core.infer_engine", "core.coarse_to_fine",
            "losses.focal", "dataloader", "dataloader.sampler",
            "dataloader.dataset", "ops.resample", "ops.elastic",
            "core.validation", "core.seg_train", "core.folds",
-           "utils.plotting", "cli.seg_train"]
+           "utils.plotting", "cli.seg_train",
+           "native", "io.nrrd", "io.dicom", "io.jpeg_lossless",
+           "utils.dicom_helper", "utils.metrics", "cli.seg_eval",
+           "tools.host_io_probe"]
 
 
 def test_port_imports_no_jax():

@@ -55,7 +55,7 @@ def test_num_partition_by_size():
         np.testing.assert_array_equal(a, b)
 
 
-EXTS = [".nii", ".nii.gz", ".mha", ".mhd", ".hdr", ".img.gz"]
+EXTS = [".nii", ".nii.gz", ".mha", ".mhd", ".hdr", ".img.gz", ".nrrd", ".nhdr"]
 DTYPES = [np.int16, np.uint8, np.float32]
 
 
@@ -91,8 +91,55 @@ def test_port_written_reads_in_jax(tmp_path, ext, dtype):
     assert ref.frame.to_dict() == read_image(path).frame.to_dict()
 
 
-def test_unported_formats_fail_loudly(tmp_path):
-    with pytest.raises(NotImplementedError):
-        read_image(str(tmp_path / "v.nrrd"))
-    with pytest.raises(NotImplementedError):
-        read_image(str(tmp_path))  # a DICOM series directory
+def test_unknown_extension_raises(tmp_path):
+    """Every format the JAX package reads is ported; an unknown extension
+    still raises ``ValueError`` both ways, and a directory with no DICOM
+    file is no series."""
+    with pytest.raises(ValueError, match="unsupported image format"):
+        read_image(str(tmp_path / "v.xyz"))
+    with pytest.raises(ValueError, match="unsupported image format"):
+        write_image(Volume(_volume(np.int16, 0), rotated_frame()), str(tmp_path / "v.xyz"))
+    with pytest.raises(ValueError, match="no DICOM files"):
+        read_image(str(tmp_path))
+
+
+def _nrrd_header(lines, sizes=(11, 9, 7)):
+    return ("NRRD0004\n# a comment\nkey:=value\ndimension: 3\n"
+            f"sizes: {' '.join(map(str, sizes))}\n" + "".join(f"{ln}\n" for ln in lines))
+
+
+#: NRRD layouts other writers use: (header lines, payload of the int16 voxels)
+NRRD_VARIANTS = {
+    "ras_space": (["type: short", "space: right-anterior-superior",
+                   "space directions: (0.7,0,0) (0,0.8,0) (0,0,1.5)",
+                   "space origin: (10,-20,5)", "encoding: raw", "endian: little"], "raw"),
+    "big_endian": (["type: int16", "space: left-posterior-superior",
+                    "space directions: (0.7,0,0) (0,0.8,0) (0,0,1.5)",
+                    "encoding: raw", "endian: big"], "big"),
+    "bare_zlib": (["type: short", "spacings: 0.7 0.8 1.5", "encoding: gzip"], "zlib"),
+    "gzip_line_skip": (["type: short", "spacings: 0.7 0.8 1.5", "encoding: gzip",
+                        "line skip: 1"], "gzip_line"),
+    "ascii": (["type: short", "spacings: 0.7 0.8 1.5", "encoding: ascii"], "ascii"),
+    "byte_skip_end": (["type: short", "spacings: 0.7 0.8 1.5", "encoding: raw",
+                       "byte skip: -1"], "padded"),
+}
+
+
+@pytest.mark.parametrize("name", list(NRRD_VARIANTS))
+def test_nrrd_variants_read_as_jax(tmp_path, name):
+    import gzip
+    import zlib
+    data = _volume(np.int16, 2)
+    lines, kind = NRRD_VARIANTS[name]
+    payload = {"raw": data.tobytes(), "big": data.astype(">i2").tobytes(),
+               "zlib": zlib.compress(data.tobytes()),
+               "gzip_line": b"skipped line\n" + gzip.compress(data.tobytes()),
+               "ascii": " ".join(map(str, data.reshape(-1))).encode(),
+               "padded": b"\x07" * 13 + data.tobytes()}[kind]
+    path = tmp_path / "v.nrrd"
+    path.write_bytes(_nrrd_header(lines).encode() + b"\n" + payload)
+    got, ref = read_image(str(path)), jax_read(str(path))
+    np.testing.assert_array_equal(got.data, data)
+    np.testing.assert_array_equal(got.data, ref.data)
+    assert got.data.dtype == ref.data.dtype
+    assert got.frame.to_dict() == ref.frame.to_dict()

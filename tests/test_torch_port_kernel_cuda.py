@@ -326,3 +326,51 @@ def test_kernel_matches_plain_at_validation_sites(cuda_device, shape, cin, cout,
     assert got.shape == ref.shape == shape + (cout,)
     assert (got.float() - ref.float()).abs().max().item() <= \
         0.05 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_dicom_series_on_card_matches_cpu(cuda_device, tmp_path):
+    """``seg_infer --bf16`` on a small DICOM series: the card (the folded
+    forward through thin_conv3d) gives the mask of the same forward on the
+    CPU (its plain versions) on >= 99.9% of voxels, and exactly the mask
+    the card gives the series' NIfTI copy (a grid exact in both formats).
+    The net's head is fitted to the phantom's ball, so the mask has teeth."""
+    from segmentation3d_tpu_torch.cli.seg_infer import main as seg_infer
+    from segmentation3d_tpu_torch.core.seg_infer import segmentation
+    from segmentation3d_tpu_torch.io import Volume, read_image, write_image
+    from segmentation3d_tpu_torch.io.dicom import write_dicom_series
+    from segmentation3d_tpu_torch.ops.geometry import Frame
+    from segmentation3d_tpu_torch.utils.model_io import save_checkpoint
+    from segmentation3d_tpu_torch.utils.normalizer import FixedNormalizer
+    shape = (32, 48, 40)
+    z, y, x = np.mgrid[:shape[0], :shape[1], :shape[2]]
+    ball = (z - 15) ** 2 + (y - 22) ** 2 + (x - 20) ** 2 < 150
+    img = (np.where(ball, 200, -100)
+           + np.random.default_rng(0).normal(0, 20, shape)).astype(np.int16)
+    kw = dict(base_channels=16, down_convs=(1, 2), up_convs=(2, 1))
+    torch.manual_seed(0)
+    norm = FixedNormalizer(40.0, 400.0, True)
+    net = chip_smoke.calibrate(torch, SegmentationNet(1, 2, **kw), norm, patches=lambda rng: (
+        img[None], np.ones((1,) + shape, bool), ball[None]))
+    model = str(tmp_path / "model")
+    save_checkpoint(model, 1, 0, net.state_dict(), "vnet", 16, 1, 2, [1.0] * 3,
+                    "LINEAR", [norm], extra={"net_kwargs": kw})
+    frame = Frame(np.array([-20.0, 15.0, 3.0]), np.array([0.75, 0.75, 1.5]), np.eye(3))
+    write_dicom_series(str(tmp_path / "series"), img, frame)
+    write_image(Volume(img, frame), str(tmp_path / "nifti" / "series.nii.gz"))
+    part = ["--bf16", "--partition_type", "SIZE", "--partition_size", "32", "32", "32",
+            "--partition_stride", "16", "16", "16"]
+    before = tc.thin_conv3d.launches
+    seg_infer(["-i", str(tmp_path / "series"), "-m", model, "-o", str(tmp_path / "gpu")]
+              + part)
+    assert tc.thin_conv3d.launches > before
+    seg_infer(["-i", str(tmp_path / "nifti"), "-m", model, "-o", str(tmp_path / "nii")]
+              + part)
+    segmentation(str(tmp_path / "series"), model, str(tmp_path / "cpu"), device="cpu",
+                 dtype=torch.bfloat16, fused=True, partition_type="SIZE",
+                 partition_size=[32] * 3, partition_stride=[16] * 3)
+    gpu, nii, cpu = (read_image(str(tmp_path / r / "series" / "seg.mha")).data
+                     for r in ("gpu", "nii", "cpu"))
+    np.testing.assert_array_equal(gpu, nii)
+    assert np.mean(gpu == cpu) >= 0.999
+    assert np.mean(gpu == ball) >= 0.98

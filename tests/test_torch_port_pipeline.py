@@ -9,6 +9,7 @@ maps, plus their float16 storage step); the probability maps within 2e-3.
 import os
 import shutil
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -21,6 +22,8 @@ from segmentation3d_tpu.utils import model_io as jax_io
 from segmentation3d_tpu.utils.normalizer import AdaptiveNormalizer
 from segmentation3d_tpu_torch.core import seg_infer
 from segmentation3d_tpu_torch.core.seg_infer import prepare_cases, segmentation
+from segmentation3d_tpu_torch.io import Volume
+from segmentation3d_tpu_torch.ops.geometry import Frame
 from test_torch_port_checkpoint import KW, seeded_variables
 
 CASES = {"case0_mod0": (30, 34, 28), "case1_mod0": (26, 30, 32),
@@ -194,3 +197,81 @@ def test_upload_keeps_the_stored_dtype():
     t = seg_infer._upload(a.astype(np.uint16), cpu)
     assert t.dtype == torch.float32
     np.testing.assert_array_equal(t.numpy(), a.astype(np.uint16))
+
+
+def _slow_reads(monkeypatch, delays, bad=()):
+    """``read_image`` replaced by one that sleeps ``delays[path]``, raises
+    for ``bad`` paths and records how many reads overlapped."""
+    lock = threading.Lock()
+    state = {"now": 0, "most": 0, "done": []}
+
+    def read(path):
+        with lock:
+            state["now"] += 1
+            state["most"] = max(state["most"], state["now"])
+        try:
+            time.sleep(delays[path])
+            if path in bad:
+                raise ValueError(f"{path}: unreadable")
+            return Volume(np.full((2, 3, 4), int(path[1:]), np.int16),
+                          Frame.identity())
+        finally:
+            with lock:
+                state["now"] -= 1
+                state["done"].append(path)
+    monkeypatch.setattr(seg_infer, "read_image", read)
+    return state
+
+
+def test_several_decoders_keep_the_input_order(monkeypatch):
+    """Reads that take different times (the first the longest) overlap and
+    still come out in input order; an unreadable case in the middle yields
+    its error and the others their voxels."""
+    cases = [[f"c{i}"] for i in range(8)]
+    state = _slow_reads(monkeypatch, {f"c{i}": 0.02 * (8 - i) for i in range(8)},
+                        bad={"c3"})
+    monkeypatch.setattr(seg_infer, "default_decoders", lambda: 4)
+    reader = seg_infer._ReadAhead(cases, torch.device("cpu"))
+    assert reader.decoders == 4
+    items = list(reader)
+    assert [it[0] for it in items] == cases
+    assert state["most"] > 1  # the reads overlapped
+    for i, (paths, vols, devs, err, (start, secs)) in enumerate(items):
+        if i == 3:
+            assert isinstance(err, ValueError) and vols is None and devs is None
+            continue
+        assert err is None and secs > 0
+        assert torch.equal(devs[0], torch.full((2, 3, 4), i, dtype=torch.int16))
+    assert 1 <= seg_infer.default_decoders() <= seg_infer.MAX_DECODERS
+
+
+def test_close_mid_list_ends_every_decoder(monkeypatch):
+    before = threading.active_count()
+    cases = [[f"c{i}"] for i in range(16)]
+    state = _slow_reads(monkeypatch, {f"c{i}": 0.05 for i in range(16)})
+    monkeypatch.setattr(seg_infer, "default_decoders", lambda: 3)
+    reader = seg_infer._ReadAhead(cases, torch.device("cpu"))
+    assert next(reader)[0] == ["c0"]
+    closer = threading.Thread(target=reader.close)
+    closer.start()
+    closer.join(timeout=30)
+    assert not closer.is_alive()
+    assert threading.active_count() == before
+    assert len(state["done"]) < len(cases)  # stopped mid-list
+
+
+def test_unreadable_case_in_the_middle_with_several_decoders(folder, monkeypatch,
+                                                             tmp_path, capsys):
+    """A folder whose second of four cases is unreadable, read by three
+    decode threads: the error is reported and the three others are
+    segmented as in JAX."""
+    d, inp, model = folder
+    mixed = tmp_path / "in"
+    shutil.copytree(inp, mixed, ignore=shutil.ignore_patterns("broken*"))
+    (mixed / "case0_zz.nii.gz").write_bytes(b"not a nifti file")
+    monkeypatch.setattr(seg_infer, "default_decoders", lambda: 3)
+    res = segmentation(str(mixed), model, str(tmp_path / "out"), device="cpu")
+    assert [r[0] for r in res] == list(CASES)
+    assert "ERROR: skipping case0_zz" in capsys.readouterr().out
+    for name in CASES:
+        assert_same_mask(str(tmp_path / "out"), str(d / "jax"), name)

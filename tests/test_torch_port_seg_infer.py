@@ -191,3 +191,37 @@ def test_unknown_quant_raises(case):
     with pytest.raises(ValueError, match="quant"):
         segmentation(img, model_dir, os.path.join(d, "int4"), quant="int4",
                      device="cpu")
+
+
+@pytest.mark.parametrize("fmt", ["dicom", "nrrd"])
+def test_cli_matches_jax_on_dicom_series_and_nrrd(case, fmt):
+    """The phantom as a DICOM series (float voxels stored as int16 with
+    slope/intercept) and as a gzipped .nrrd, through JAX's segmentation()
+    and the port's CLI: masks by the rule of this file's docstring, and the
+    mask of the series on the series' own grid."""
+    from segmentation3d_tpu_torch.io import read_image, write_image
+    from segmentation3d_tpu_torch.io.dicom import write_dicom_series
+    d, img, model_dir = case
+    vol = read_image(img)
+    src = os.path.join(d, "series" if fmt == "dicom" else "series.nrrd")
+    if not os.path.exists(src):
+        if fmt == "dicom":
+            write_dicom_series(src, vol.data, vol.frame)
+        else:
+            write_image(vol, src)
+    jax_segmentation(src, model_dir, os.path.join(d, "jax_" + fmt), save_prob=True)
+    res = seg_infer(["-i", src, "-m", model_dir, "-o", os.path.join(d, "port_" + fmt),
+                     "-g", "-1", "--save_prob"])
+    assert [r[0] for r in res] == ["series"]
+
+    def out(root, name):
+        return jax_read(os.path.join(d, root, "series", name))
+    ref, got = out("jax_" + fmt, "seg.mha"), out("port_" + fmt, "seg.mha")
+    assert got.data.shape == ref.data.shape == (30, 34, 28)
+    assert got.frame.to_dict() == ref.frame.to_dict()
+    assert got.frame.isclose(jax_read(src).frame, tol=1e-6)
+    assert 0.05 < np.mean(ref.data == 1) < 0.95
+    differ = got.data != ref.data
+    assert differ.mean() <= 1e-3
+    p0, p1 = (out("jax_" + fmt, f"prob_{c}.mha").data for c in (0, 1))
+    assert np.all(np.abs(p0 - p1)[differ] < 1e-4 + 2.0 ** -11)

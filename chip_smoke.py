@@ -48,11 +48,26 @@ NVIDIA GPU:
    ``--int8`` against float32;
 11. vbnet: a seeded full-width VB-Net, ``--bf16`` (the nn.Module, no kernel
    launch) against float32;
-12. train_step: one SGD step of a seeded full-width V-Net on a seeded
+12. convert: 4's model written as the original PyTorch toolkit saves it
+   (foreign names, no ``_kernel_layouts``); ``seg_infer --bf16`` through
+   the positional importer, and on ``seg_convert``'s output, must each give
+   4's mask voxel for voxel with 20 launches per batch; the import's and
+   the conversion's seconds;
+13. serve: ``seg_serve``'s ``main`` in a thread on a Unix socket, session
+   caches emptied first: a bf16 server answers a ping, a burst of 7's three
+   cases from three client threads (masks equal to 7's; a ping sent while
+   the first runs answers before it ends; 20 launches per batch; model load
+   and forward build once; at most one request prepared ahead) and one
+   warm request; an int8 server calibrated on 4's case answers two
+   requests (calibration once; masks equal to 6's calibrated mask); a
+   coarse-to-fine server one (10's bf16 mask); each request's seconds, the
+   burst's volumes/min beside 7's and peak device memory;
+14. train_step: one SGD step of a seeded full-width V-Net on a seeded
    2 x 64^3 batch on the card and on the CPU, in float32 (TF32 off) and in
    float64 (loss, every update, every BatchNorm buffer), then the median step time at
-   8 x 96^3 in float32 and bf16 beside its bound;
-13. train: ``seg_train`` on four seeded CT-like 256x256x160 cases with a
+   8 x 96^3 in float32 and bf16 beside its bound (the forward's operations
+   by forward hooks, equal to ``utils/flops.py:vnet_forward_flops``);
+15. train: ``seg_train`` on four seeded CT-like 256x256x160 cases with a
    two-organ label and one validation case (bf16, batch 8 x 96^3, 32
    steps, two save points): the loss falls, ``thin_conv3d`` launches 20
    times per validation forward and ``window_conv_i8`` never, the folded
@@ -678,6 +693,7 @@ def phase_main_int8(torch, tc, wi, ctx, gpu):
     for tag, extra in (("int8_prob", []),
                        ("int8_calib_prob", ["--int8_calib", ctx["ct"]])):
         r = run(tag, ["--int8", "--save_prob"] + extra)
+        ctx[tag + "_mask"] = r["mask"]
         gaps = mask_gaps(np, read_image, r, ctx["f32"], ctx["body"])
         dice_min, dprob_max = INT8_LIMITS[tag]
         emit("int8_vs_f32", run=tag, **gaps, min_agreement=AGREE_MIN,
@@ -891,6 +907,7 @@ def phase_pipeline(torch, tc, ctx, gpu):
          decode_threads=default_decoders(), setup_seconds=setup, gpu=gpu)
     check(differ == 0, f"the pipelined main case differs from the main path's "
           f"bf16 mask in {differ} voxels")
+    ctx["pipeline"] = dict(folder=folder, out=out, volumes_per_min=60.0 * len(res) / wall)
     for name in ("b_seed1", "c_short"):
         check(FG_BODY[0] <= fg[name] <= FG_BODY[1],
               f"{name}: foreground is {fg[name]} of the body, outside {FG_BODY}")
@@ -996,6 +1013,7 @@ def phase_c2f(torch, tc, wi, ctx, gpu):
           f"expected ({20 + fine_batches}, {19 * fine_batches})")
     check_gaps("c2f bf16/f32", gaps["bf16"], DICE_MIN, DPROB_MAX)
     check_gaps("c2f int8/f32", gaps["int8"], *INT8_LIMITS["int8_prob"])
+    ctx.update(coarse=coarse, c2f_bf16_mask=bf16["mask"], c2f_launches=thin)
 
 
 def phase_vbnet(torch, tc, wi, ctx, gpu):
@@ -1024,6 +1042,261 @@ def phase_vbnet(torch, tc, wi, ctx, gpu):
           f"vbnet: foreground is {fg_body} of the body, outside {FG_BODY}")
     check(gaps["agreement"] >= AGREE_MIN,
           f"vbnet bf16/f32 agreement {gaps['agreement']} < {AGREE_MIN}")
+
+
+def phase_convert(torch, tc, ctx, gpu):
+    """The main path's model as the original PyTorch toolkit saves it (the
+    same tensors in torch's order under its own names, the self-describing
+    keys, no ``_kernel_layouts``): ``seg_infer --bf16`` loads it through the
+    positional importer, and the model ``seg_convert`` writes from it, must
+    each give the main path's mask voxel for voxel with 20 launches per
+    batch."""
+    from segmentation3d_tpu_torch.cli.seg_convert import main as seg_convert
+    from segmentation3d_tpu_torch.compat.torch_import import import_torch_state_dict
+    from segmentation3d_tpu_torch.models import create_network
+    from segmentation3d_tpu_torch.utils import model_io
+    native = model_io.load_checkpoint_payload(model_io.latest_checkpoint(ctx["model_dir"]))
+    toolkit = os.path.join(ctx["workdir"], "toolkit_model")
+    chk = os.path.join(toolkit, "checkpoints", "chk_1")
+    os.makedirs(chk)
+    payload = {k: v for k, v in native.items() if k != "_kernel_layouts"}
+    # DataParallel-style names that keep only each tensor's last name part
+    payload["state_dict"] = {f"module.layers.{i}.{k.rsplit('.', 1)[1]}": t
+                             for i, (k, t) in enumerate(native["state_dict"].items())}
+    torch.save(payload, os.path.join(chk, "params.pth"))
+    net = create_network(native["net"], native["in_channels"], native["out_channels"],
+                         **(native.get("net_kwargs") or {}))
+    t = time.perf_counter()
+    state = import_torch_state_dict(payload["state_dict"], net)
+    import_s = time.perf_counter() - t
+    check(all(torch.equal(state[k], v) for k, v in native["state_dict"].items()
+              if not k.endswith("num_batches_tracked")),
+          "the positional import differs from the native state_dict")
+    t = time.perf_counter()
+    converted = os.path.join(ctx["workdir"], "converted_model")
+    seg_convert(["-i", toolkit, "-o", converted])
+    convert_s = time.perf_counter() - t
+    check("_kernel_layouts" in model_io.load_checkpoint_payload(
+        model_io.latest_checkpoint(converted)), "seg_convert wrote no _kernel_layouts")
+    runs, launches = {}, {}
+    for tag, model in (("toolkit", toolkit), ("converted", converted)):
+        # each path: counts reset just before, read just after
+        tc.thin_conv3d.launches = 0
+        runs[tag] = ctx["run"](f"{tag}_bf16", ["--bf16"], ["-i", ctx["ct"], "-m", model])
+        launches[tag] = tc.thin_conv3d.launches
+    differ = {tag: int((r["mask"] != ctx["bf16_mask"]).sum()) for tag, r in runs.items()}
+    emit("convert", import_seconds=import_s, convert_seconds=convert_s,
+         launches=launches, patch_batches=ctx["n_batches"],
+         voxels_differing_from_main_path=differ,
+         seconds={tag: r["wall"] for tag, r in runs.items()},
+         stages={tag: r["stages"] for tag, r in runs.items()}, gpu=gpu)
+    for tag in runs:
+        check(launches[tag] == 20 * ctx["n_batches"],
+              f"{tag} checkpoint: thin_conv3d launched {launches[tag]} times, "
+              f"expected 20 x {ctx['n_batches']}")
+        check(differ[tag] == 0, f"{tag} checkpoint: the mask differs from the "
+              f"main path's in {differ[tag]} voxels")
+    return {"seg_infer --bf16 (toolkit checkpoint)": launches["toolkit"],
+            "seg_infer --bf16 (seg_convert output)": launches["converted"]}
+
+
+def socket_path(workdir, tag):
+    """A Unix socket in ``workdir``, named relative to the working directory
+    where that is shorter (AF_UNIX takes at most 107 bytes)."""
+    path = os.path.join(workdir, f"{tag}.sock")
+    return min(path, os.path.relpath(path), key=len)
+
+
+def phase_serve(torch, tc, wi, ctx, gpu):
+    """``seg_serve``'s ``main`` in a thread, on a Unix socket, as a
+    deployment runs it, with the session caches emptied first as in a new
+    server process. A bf16 server: a ping, a burst of three requests from
+    three client threads (the pipeline phase's cases, masks equal to that
+    phase's), a ping while the first runs, then one more warm request; an
+    int8 server calibrated on the main case: two requests; a coarse-to-fine
+    server: one request. Load, build and calibration are counted (once per
+    server), and so are the prepared requests waiting (at most one)."""
+    import threading
+    import numpy as np
+    from segmentation3d_tpu_torch.cli import seg_serve
+    from segmentation3d_tpu_torch.core import coarse_to_fine as c2f
+    from segmentation3d_tpu_torch.core import seg_infer as si
+    from segmentation3d_tpu_torch.core.serve import request
+    from segmentation3d_tpu_torch.io import read_image
+    lock = threading.Lock()
+    n = dict(load=0, build=0, calib=0, waiting=0, max_waiting=0)
+    started = threading.Event()
+    patched = []
+
+    def wrap(mod, name, before):
+        fn = getattr(mod, name)
+
+        def counted(*a, **kw):
+            with lock:
+                before()
+            return fn(*a, **kw)
+        patched.append((mod, name, fn))
+        setattr(mod, name, counted)
+
+    def bump(key, by=1):
+        def f():
+            n[key] += by
+            n["max_waiting"] = max(n["max_waiting"], n["waiting"])
+        return f
+
+    def run_starts():
+        n["waiting"] -= 1
+        started.set()
+    for mod in (si, c2f):
+        wrap(mod, "load_seg_model", bump("load"))
+        wrap(mod, "build_forward", bump("build"))
+    wrap(si, "_calibrate_for_model", bump("calib"))
+    wrap(seg_serve, "prepare_cases", bump("waiting"))
+    wrap(seg_serve, "segmentation", run_starts)
+    wrap(seg_serve, "segmentation_coarse_to_fine", run_starts)
+
+    def start(tag, argv):
+        si._SESSIONS.clear()
+        c2f._C2F_SESSIONS.clear()
+        torch.cuda.empty_cache()
+        for k in n:
+            n[k] = 0
+        tc.thin_conv3d.launches = wi.window_conv_i8.launches = 0
+        sock = socket_path(ctx["workdir"], tag)
+        th = threading.Thread(target=seg_serve.main, daemon=True,
+                              args=(argv + ctx["part"] + ["--socket", sock],))
+        th.start()
+        while not os.path.exists(sock):
+            check(th.is_alive(), f"{tag}: the server ended before it listened")
+            th.join(0.05)
+        return sock, th
+
+    def stop(sock, th):
+        check(request(sock, {"cmd": "shutdown"}, timeout=60).get("shutdown"),
+              "shutdown refused")
+        th.join(60)
+        check(not th.is_alive(), "the server did not end")
+
+    def mask_of(resp, out):
+        check(resp is not None and resp["ok"], f"request failed: {resp}")
+        name = resp["results"][0][0]
+        return name, read_image(os.path.join(out, name, "seg.mha")).data
+
+    def timed(sock, out, inp, into, i):
+        t = time.perf_counter()
+        r = request(sock, {"input": inp, "output_dir": out}, timeout=600)
+        into[i] = (r, t, time.perf_counter())
+
+    try:
+        # ---- bf16: ping, a three-request burst with a ping inside, warm
+        model = ctx["model_dir"]
+        sock, th = start("serve_bf16", ["-m", model, "--bf16"])
+        check(request(sock, {"cmd": "ping"}, timeout=60).get("pong"), "no pong")
+        pipe = ctx["pipeline"]
+        names = list(PIPE_BATCHES)
+        out = os.path.join(ctx["workdir"], "serve_bf16")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = [None] * len(names)
+        clients = []
+        t0 = time.perf_counter()
+        for i, name in enumerate(names):
+            clients.append(threading.Thread(target=timed, args=(
+                sock, out, os.path.join(pipe["folder"], name + ".nii.gz"), got, i)))
+            clients[-1].start()
+            if i == 0:
+                check(started.wait(120), "the first request never started")
+                tp = time.perf_counter()
+                check(request(sock, {"cmd": "ping"}, timeout=60).get("pong"), "no pong")
+                ping_at = time.perf_counter()
+            else:
+                time.sleep(0.05)  # arrival, hence FIFO, order
+        for c in clients:
+            c.join(600)
+        wall = max(g[2] for g in got) - t0
+        burst = dict(launches=tc.thin_conv3d.launches, **n)
+        peak = torch.cuda.max_memory_allocated()
+        differ = {}
+        for name, (r, _, _) in zip(names, got):
+            case, mask = mask_of(r, out)
+            check(case == name, f"burst answered {case} for {name}")
+            ref = read_image(os.path.join(pipe["out"], name, "seg.mha")).data
+            differ[name] = int((mask != ref).sum())
+        tc.thin_conv3d.launches = 0
+        warm = [None]
+        timed(sock, os.path.join(ctx["workdir"], "serve_warm"), ctx["ct"], warm, 0)
+        warm_launches = tc.thin_conv3d.launches
+        _, warm_mask = mask_of(warm[0][0], os.path.join(ctx["workdir"], "serve_warm"))
+        stop(sock, th)
+        emit("serve", server="bf16", cases=names,
+             request_seconds=[g[2] - g[1] for g in got],
+             server_seconds=[g[0]["secs"] for g in got],
+             ping_seconds=ping_at - tp, ping_before_first_response=ping_at < got[0][2],
+             burst_seconds=wall, burst_volumes_per_min=60.0 * len(names) / wall,
+             pipeline_volumes_per_min=pipe["volumes_per_min"],
+             warm_request_seconds=warm[0][2] - warm[0][1],
+             single_call_seconds=ctx["serial"]["wall"], counts=burst,
+             warm_launches=warm_launches, voxels_differing=differ,
+             max_memory_allocated=peak, gpu=gpu)
+        check(ping_at < got[0][2], "the ping waited for the first request")
+        check(burst["launches"] == 20 * sum(PIPE_BATCHES.values()),
+              f"the burst launched thin_conv3d {burst['launches']} times, expected "
+              f"20 x {sum(PIPE_BATCHES.values())}")
+        check((burst["load"], burst["build"]) == (1, 1),
+              f"the burst loaded {burst['load']} and built {burst['build']} times")
+        check(burst["max_waiting"] <= 1, f"{burst['max_waiting']} requests prepared ahead")
+        check(not any(differ.values()), f"served masks differ from the pipeline's: {differ}")
+        check(warm_launches == 20 * ctx["n_batches"] and n["load"] == 1,
+              f"warm request: {warm_launches} launches, {n['load']} loads")
+        check(not (warm_mask != ctx["bf16_mask"]).any(),
+              "the warm request's mask differs from the main path's")
+
+        # ---- int8, calibrated on the main case: two requests
+        sock, th = start("serve_int8", ["-m", model, "--int8", "--int8_calib", ctx["ct"]])
+        secs, differ = [], []
+        for i in range(2):
+            o = os.path.join(ctx["workdir"], f"serve_int8_{i}")
+            one = [None]
+            timed(sock, o, ctx["ct"], one, 0)
+            secs.append(one[0][2] - one[0][1])
+            differ.append(int((mask_of(one[0][0], o)[1] != ctx["int8_calib_prob_mask"]).sum()))
+        int8 = dict(thin_conv3d=tc.thin_conv3d.launches,
+                    window_conv_i8=wi.window_conv_i8.launches, **n)
+        stop(sock, th)
+        emit("serve", server="int8_calib", request_seconds=secs, counts=int8,
+             voxels_differing=differ, gpu=gpu)
+        check((int8["load"], int8["build"], int8["calib"]) == (1, 1, 1),
+              f"int8 server: load, build, calibration ran "
+              f"{(int8['load'], int8['build'], int8['calib'])} times")
+        # the stem per batch, and the calibration's one folded forward
+        # (calibrate_int8) once per server
+        check((int8["thin_conv3d"], int8["window_conv_i8"])
+              == (2 * ctx["n_batches"] + 20, 2 * 19 * ctx["n_batches"]),
+              f"int8 server launched {int8}")
+        check(not any(differ), f"int8 served masks differ from phase_main_int8's: {differ}")
+
+        # ---- coarse-to-fine: one request
+        sock, th = start("serve_c2f", ["-m", ctx["coarse"], "--fine_model", model, "--bf16"])
+        o = os.path.join(ctx["workdir"], "serve_c2f")
+        one = [None]
+        timed(sock, o, ctx["ct"], one, 0)
+        c2f_counts = dict(launches=tc.thin_conv3d.launches, **n)
+        differ = int((mask_of(one[0][0], o)[1] != ctx["c2f_bf16_mask"]).sum())
+        stop(sock, th)
+        emit("serve", server="c2f_bf16", request_seconds=one[0][2] - one[0][1],
+             counts=c2f_counts, voxels_differing=differ, gpu=gpu)
+        check(c2f_counts["launches"] == ctx["c2f_launches"],
+              f"c2f server launched thin_conv3d {c2f_counts['launches']} times, "
+              f"the c2f phase {ctx['c2f_launches']}")
+        check(differ == 0, f"the c2f served mask differs in {differ} voxels")
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+    return ({"seg_serve --bf16 (3-case burst)": burst["launches"],
+             "seg_serve --bf16 (warm request)": warm_launches,
+             "seg_serve --int8 --int8_calib (stems, calibration)": int8["thin_conv3d"],
+             "seg_serve --fine_model --bf16": c2f_counts["launches"]},
+            {"seg_serve --int8 --int8_calib": int8["window_conv_i8"]})
 
 
 #: train_step phase: one SGD step on the card against the CPU's, in float32
@@ -1108,6 +1381,7 @@ def phase_train_step(torch, gpu):
     from segmentation3d_tpu_torch.core.seg_train import train_step
     from segmentation3d_tpu_torch.losses import create_loss
     from segmentation3d_tpu_torch.models.vnet import SegmentationNet, init_like_flax_
+    from segmentation3d_tpu_torch.utils.flops import vnet_forward_flops
     loss_fn = create_loss(EasyDict(name="Dice", obj_weight=None), 2)
     net = SegmentationNet(1, 2, remat=True)
     init_like_flax_(net, torch.Generator().manual_seed(5))
@@ -1172,6 +1446,8 @@ def phase_train_step(torch, gpu):
     yb = (torch.rand(BATCH, PATCH, PATCH, PATCH, device=DEV) < 0.3).to(torch.int32)
     timing = {}
     fwd = forward_flops(torch, net.to(DEV), (1, PATCH, PATCH, PATCH, 1))
+    analytic = vnet_forward_flops((PATCH,) * 3, 1, 2)
+    check(fwd == analytic, f"forward FLOPs by hooks {fwd} != utils/flops.py's {analytic}")
     step_flops = 3 * fwd * BATCH  # forward + the backward's two products
     for name, dt, peak in (("float32", torch.float32, PEAK_F32_FLOPS),
                            ("bfloat16", torch.bfloat16, PEAK_BF16_FLOPS)):
@@ -1197,6 +1473,7 @@ def phase_train_step(torch, gpu):
         del n, opt
         torch.cuda.empty_cache()
     emit("train_step_time", batch=BATCH, crop=PATCH, forward_gflop_per_crop=fwd / 1e9,
+         utils_flops_gflop_per_crop=analytic / 1e9,
          step_tflop=step_flops / 1e12, remat=True, **timing, gpu=gpu)
     return timing
 
@@ -1450,27 +1727,32 @@ def main():
         phase_tta(torch, tc, ctx, gpu)
         phase_c2f(torch, tc, wi, ctx, gpu)
         phase_vbnet(torch, tc, wi, ctx, gpu)
+        launches_convert = phase_convert(torch, tc, ctx, gpu)
+        launches_serve, launches_serve_i8 = phase_serve(torch, tc, wi, ctx, gpu)
         phase_train_step(torch, gpu)
         launches_train = phase_train(torch, tc, wi, workdir, gpu)
 
+    thin_paths = {"seg_infer --bf16": ctx["launches"], **launches_formats,
+                  **launches_convert, **launches_serve,
+                  "seg_train (validation)": launches_train}
     thin = kernel_entry("thin_conv3d", "segmentation3d_tpu_torch/csrc/thin_conv3d.cu",
                         "segmentation3d_tpu/ops/pallas_conv.py:174",
-                        ctx["launches"] + sum(launches_formats.values())
-                        + launches_train, sites, PEAK_BF16_FLOPS, "flops")
-    thin["launches_by_path"] = {"seg_infer --bf16": ctx["launches"], **launches_formats,
-                                "seg_train (validation)": launches_train}
+                        sum(thin_paths.values()), sites, PEAK_BF16_FLOPS, "flops")
+    thin["launches_by_path"] = thin_paths
+    i8_paths = {"seg_infer --int8": launches_i8, **launches_serve_i8}
+    i8 = kernel_entry("window_conv_i8", "segmentation3d_tpu_torch/csrc/window_conv_i8.cu",
+                      "segmentation3d_tpu/ops/pallas_i8win.py:144",
+                      sum(i8_paths.values()), sites_i8, PEAK_INT8_OPS, "ops")
+    i8["launches_by_path"] = i8_paths
     print(gpu)
     print(json.dumps({"kernels": [
-        # the bf16 main path's 20 launches per forward (NIfTI, DICOM and
-        # NRRD input), and the training path's 20 per validation forward;
-        # the epilogue variants' errors
-        # (int8 in steps) are on their own "kernel" lines
+        # 20 launches per bf16 forward: the main path (NIfTI, DICOM and NRRD
+        # input, toolkit and converted checkpoints, served requests), the
+        # training path's validation; the epilogue variants' errors (int8 in
+        # steps) are on their own "kernel" lines
         thin,
-        # the int8 main path's 19 launches per forward
-        kernel_entry("window_conv_i8",
-                     "segmentation3d_tpu_torch/csrc/window_conv_i8.cu",
-                     "segmentation3d_tpu/ops/pallas_i8win.py:144",
-                     launches_i8, sites_i8, PEAK_INT8_OPS, "ops"),
+        # 19 launches per int8 forward: the int8 main path, served requests
+        i8,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ behind, per-case failure isolation, ``prepared=``). ``fine_model_dir`` may
 be a list: a fine-fold ensemble averaged on the device, under the same
 contract checks as ``segmentation``. ``quant="int8"`` quantizes the fine
 models only; the coarse pass keeps full precision. ``tta`` mirror-averages
-the fine pass.
+the fine pass. Both models, their forwards and inferers are kept across
+calls in a session cache (``_C2F_SESSIONS``).
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ import torch
 from segmentation3d_tpu_torch.core.infer_engine import SlidingWindowInferer, tta_axes
 from segmentation3d_tpu_torch.core.seg_infer import (
     SegModel, _calib_paths, _case_loop, _check_ensemble_contract,
-    _DeferredVolume, _model_dirs, _prepared_for, _StageClock, build_forward,
-    deferred_outputs, ensemble_forward, load_seg_model, prep_channels,
+    _closed_on_error, _DeferredVolume, _model_dirs, _prepared_for, _StageClock,
+    build_forward, checkpoint_identity, deferred_outputs, ensemble_forward,
+    load_seg_model, prep_channels,
 )
 from segmentation3d_tpu_torch.io import Volume
 from segmentation3d_tpu_torch.ops.geometry import Frame, resampled_frame
@@ -237,8 +239,16 @@ def _build_c2f_session(coarse_model_dir, fine_model_dirs, dtype, patch,
         blend=blend if stride_eff != patch_eff else "constant", tta=tta)
         for f in fines]
     return {"coarse": coarse, "coarse_forward": build_forward(coarse, dtype, device),
-            "fines": fines, "fine_inferers": fine_inferers,
+            "coarse_inferers": {}, "fines": fines, "fine_inferers": fine_inferers,
             "patch": patch_eff, "stride": stride_eff}
+
+
+#: :func:`segmentation_coarse_to_fine`'s sessions (:func:`_build_c2f_session`
+#: plus the coarse inferer of each coarse grid shape), keyed by both models'
+#: checkpoint identities and every option that shapes them; at most two, the
+#: oldest dropped first. Only the calling thread reads and writes it.
+_C2F_SESSIONS: dict = {}
+_C2F_SESSION_CAP = 2
 
 
 def segmentation_coarse_to_fine(
@@ -257,27 +267,38 @@ def segmentation_coarse_to_fine(
     the ROI. ``save_prob`` maps are exact inside the ROI and [1, 0, ...]
     outside. Runs on ``cuda:<gpu_id>`` unless ``device`` says otherwise.
     Returns ``[(case_name, seconds, seconds_by_stage)]``."""
-    if quant not in (None, "int8"):
-        raise ValueError(f"quant {quant!r} is not one of None, 'int8'")
-    calib_paths = _calib_paths(calib_image, quant)
-    tta = tta_axes(tta)
-    dev = resolve_device(device, gpu_id)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-    patch = tuple(int(v) for v in np.asarray(partition_size)[::-1])
-    stride = tuple(int(v) for v in np.asarray(partition_stride)[::-1]) \
-        if partition_stride is not None else patch
-    sess = _build_c2f_session(
-        str(coarse_model_dir), _model_dirs(fine_model_dir), dtype, patch,
-        stride, batch_size, dev, quant=quant, act_clip=act_clip,
-        calib_paths=calib_paths, tta=tta, blend=blend,
-        coarse_checkpoint=coarse_checkpoint, fine_checkpoint=fine_checkpoint)
-    coarse_inferers = {}
+    with _closed_on_error(prepared):
+        if quant not in (None, "int8"):
+            raise ValueError(f"quant {quant!r} is not one of None, 'int8'")
+        calib_paths = _calib_paths(calib_image, quant)
+        tta = tta_axes(tta)
+        dev = resolve_device(device, gpu_id)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        patch = tuple(int(v) for v in np.asarray(partition_size)[::-1])
+        stride = tuple(int(v) for v in np.asarray(partition_stride)[::-1]) \
+            if partition_stride is not None else patch
+        coarse_dir, fine_dirs = str(coarse_model_dir), _model_dirs(fine_model_dir)
+        key = (checkpoint_identity(coarse_dir, coarse_checkpoint),
+               tuple(checkpoint_identity(d, fine_checkpoint) for d in fine_dirs),
+               dtype, patch, stride, int(batch_size), quant, float(act_clip),
+               tuple(calib_paths) if calib_paths else None, tta, blend, dev)
+        sess = _C2F_SESSIONS.get(key)
+        if sess is None:
+            sess = _build_c2f_session(
+                coarse_dir, fine_dirs, dtype, patch, stride, batch_size, dev,
+                quant=quant, act_clip=act_clip, calib_paths=calib_paths,
+                tta=tta, blend=blend, coarse_checkpoint=coarse_checkpoint,
+                fine_checkpoint=fine_checkpoint)
+            while len(_C2F_SESSIONS) >= _C2F_SESSION_CAP:
+                _C2F_SESSIONS.pop(next(iter(_C2F_SESSIONS)))
+            _C2F_SESSIONS[key] = sess
+        prepared = _prepared_for(prepared, input_path, dev)
 
     def run_case(case, vols, devs, case_dir):
         mask_vol, prob_out, case.clock, roi = segment_case_coarse_to_fine(
             sess["coarse"], sess["coarse_forward"], sess["fines"], vols,
-            coarse_inferers, sess["fine_inferers"], sess["patch"], dev,
+            sess["coarse_inferers"], sess["fine_inferers"], sess["patch"], dev,
             stride_zyx=sess["stride"], margin_mm=margin_mm,
             shape_bucket=shape_bucket, dev_data=devs, save_prob=save_prob,
             post_processing=post_processing)
@@ -289,5 +310,5 @@ def segmentation_coarse_to_fine(
                  for c, p in prob_out or ()]
         return jobs
 
-    return _case_loop(_prepared_for(prepared, input_path, dev), output_dir,
-                      run_case, label="coarse-to-fine segmentation")
+    return _case_loop(prepared, output_dir, run_case,
+                      label="coarse-to-fine segmentation")

@@ -28,11 +28,16 @@ it runs the ``nn.Module`` forward, and ``quant`` raises, as in the JAX
 package. ``model_dir`` may name several models: an ensemble whose class
 probabilities are averaged on the device before the argmax.
 
+Loaded models, their forwards and the inferers are kept across calls in a
+session cache (``_SESSIONS``), as the JAX package keeps its compiled
+programs, so a server's second request loads, builds and calibrates nothing.
+
 Left out on purpose: the JAX package's bit-packing of volumes and masks for
-its slow host link, its session cache and its multi-host case slicing.
+its slow host link and its multi-host case slicing.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import queue
@@ -172,21 +177,22 @@ class SegModel:
 def load_seg_model(model_dir: str, device, checkpoint=None) -> SegModel:
     """Restore everything from the self-describing ``params.pth`` of
     ``model_dir``'s checkpoint (``None``/``'latest'``, ``'best'`` or an
-    epoch number) onto ``device``."""
+    epoch number) onto ``device``. A checkpoint without ``_kernel_layouts``
+    (trained by the original PyTorch toolkit, under its own module names)
+    goes through the positional importer (``compat.torch_import``)."""
     chk = model_io.resolve_checkpoint(model_dir, checkpoint)
     payload = model_io.load_checkpoint_payload(chk)
-    if "_kernel_layouts" not in payload:
-        raise NotImplementedError(
-            f"{chk}: a checkpoint without _kernel_layouts (trained by the "
-            "original PyTorch toolkit) needs the positional importer, which "
-            "is not ported yet")
     net_mod = get_network_module(payload["net"])
     net_kwargs = dict(payload.get("net_kwargs") or {})
     net_kwargs.pop("dtype", None)
     net = net_mod.SegmentationNet(
         in_channels=int(payload["in_channels"]),
         out_channels=int(payload["out_channels"]), **net_kwargs)
-    net.load_state_dict(payload["state_dict"], strict=True)
+    state = payload["state_dict"]
+    if "_kernel_layouts" not in payload:
+        from segmentation3d_tpu_torch.compat.torch_import import import_torch_state_dict
+        state = import_torch_state_dict(state, net)
+    net.load_state_dict(state, strict=True)
     net.to(device).eval()
     return SegModel(
         net=net,
@@ -781,6 +787,12 @@ class PreparedInput:
         self.names = _case_names(self.cases)
         self.reader = _ReadAhead(self.cases, device) if self.cases else None
 
+    def close(self):
+        """Stop the read-ahead and drop what it read: an input that will not
+        be run must not hold its uploads on the device."""
+        if self.reader is not None:
+            self.reader.close()
+
 
 def prepare_cases(input_path, device=None, gpu_id=0) -> PreparedInput:
     """Start reading ``input_path``'s cases onto the device (resolved as
@@ -840,7 +852,7 @@ def _case_loop(prepared, output_dir, run_case, label="segmentation"):
         # the writer is drained even when the loop is aborted (KeyboardInterrupt,
         # a config-level error): cases already handed to it must not silently
         # lose their pending writes
-        prepared.reader.close()
+        prepared.close()
         for name, e in writer.close():
             print(f"ERROR: writing results of {name} failed: {e}")
             failures.append((name, e))
@@ -850,6 +862,19 @@ def _case_loop(prepared, output_dir, run_case, label="segmentation"):
     if failures and not results:
         raise failures[0][1]  # everything failed: not a per-case hiccup
     return results
+
+
+@contextlib.contextmanager
+def _closed_on_error(prepared):
+    """Close ``prepared`` (a :class:`PreparedInput` or None) when the block
+    raises: a request that fails before its cases run must not leave its
+    read-ahead holding uploads on the device."""
+    try:
+        yield
+    except BaseException:
+        if prepared is not None:
+            prepared.close()
+        raise
 
 
 def _model_dirs(model_dir):
@@ -867,6 +892,48 @@ def _calib_paths(calib_image, quant):
         raise ValueError("calib_image only applies with quant")
     return list(calib_image) if isinstance(calib_image, (list, tuple)) \
         else [calib_image]
+
+
+def checkpoint_identity(model_dir, checkpoint=None):
+    """``(checkpoint dir, params.pth mtime)`` of ``model_dir``'s checkpoint
+    (``checkpoint``: as :func:`load_seg_model` takes it): a session key
+    part that changes when the file is rewritten."""
+    chk = model_io.resolve_checkpoint(model_dir, checkpoint)
+    return chk, os.path.getmtime(os.path.join(chk, "params.pth"))
+
+
+#: :func:`segmentation`'s sessions: the loaded models, their forwards (an
+#: int8 forward's calibration included) and the sliding-window inferers per
+#: (patch, stride), keyed by the checkpoints' identities and every engine
+#: option that shapes them. At most ``_SESSION_CAP`` are kept, the oldest
+#: dropped first, so a server keeps a few models warm (a coarse and a fine
+#: one, say) without growing device memory. Only the thread that calls
+#: :func:`segmentation` reads and writes it (a server's exec thread).
+_SESSIONS: dict = {}
+_SESSION_CAP = 4
+
+
+def _session(model_dirs, checkpoint, dtype, device, fused, quant, act_clip,
+             calib_paths, blend, batch_size, partition_type, tta):
+    """The session of this configuration, built (and cached) on first use.
+    A session is cached only once fully built, so a failing build leaves
+    nothing behind."""
+    key = (tuple(checkpoint_identity(d, checkpoint) for d in model_dirs),
+           dtype, bool(fused), blend, int(batch_size), partition_type, quant,
+           float(act_clip), tuple(calib_paths) if calib_paths else None, tta,
+           device)
+    sess = _SESSIONS.get(key)
+    if sess is None:
+        models = [load_seg_model(d, device, checkpoint=checkpoint)
+                  for d in model_dirs]
+        _check_ensemble_contract(models, model_dirs)
+        forwards = [build_forward(m, dtype, device, fused, quant, act_clip,
+                                  calib_paths) for m in models]
+        sess = {"models": models, "forwards": forwards, "inferers": {}}
+        while len(_SESSIONS) >= _SESSION_CAP:
+            _SESSIONS.pop(next(iter(_SESSIONS)))
+        _SESSIONS[key] = sess
+    return sess
 
 
 def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
@@ -893,27 +960,32 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
     member. ``tta``: test-time mirror averaging over the named axes of the
     resampled volume ('x', 'zy', 'all'; 2^n forwards per patch batch).
     ``prepared``: a :func:`prepare_cases` of ``input_path`` whose reads
-    already started. Returns ``[(case_name, seconds, seconds_by_stage)]``.
+    already started (closed if this call fails before its cases run).
+    Models, forwards and inferers are kept in a session (``_SESSIONS``), so
+    a repeated call with the same checkpoints and options loads, builds and
+    calibrates nothing. Returns ``[(case_name, seconds, seconds_by_stage)]``.
     """
-    if quant not in (None, "int8"):
-        raise ValueError(f"quant {quant!r} is not one of None, 'int8'")
-    calib_paths = _calib_paths(calib_image, quant)
-    if quant is not None and fused is False:
-        raise ValueError("quant requires the fused forward (fused=False given)")
-    tta = tta_axes(tta)  # normalized early: bad axis names fail every case
-    dev = resolve_device(device, gpu_id)
-    model_dirs = _model_dirs(model_dir)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-    if partition_type not in (DISABLE, SIZE, NUM, SLAB):
-        raise NotImplementedError(f"partition_type {partition_type}")
-    models = [load_seg_model(d, dev, checkpoint=checkpoint) for d in model_dirs]
-    _check_ensemble_contract(models, model_dirs)
-    forwards = [build_forward(m, dtype, dev, fused, quant, act_clip, calib_paths)
-                for m in models]
-    model = models[0]
+    with _closed_on_error(prepared):
+        if quant not in (None, "int8"):
+            raise ValueError(f"quant {quant!r} is not one of None, 'int8'")
+        calib_paths = _calib_paths(calib_image, quant)
+        if quant is not None and fused is False:
+            raise ValueError("quant requires the fused forward (fused=False given)")
+        tta = tta_axes(tta)  # normalized early: bad axis names fail every case
+        dev = resolve_device(device, gpu_id)
+        model_dirs = _model_dirs(model_dir)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        if partition_type not in (DISABLE, SIZE, NUM, SLAB):
+            raise NotImplementedError(f"partition_type {partition_type}")
+        if fused is None:
+            fused = dtype == torch.bfloat16 and dev.type == "cuda"
+        sess = _session(model_dirs, checkpoint, dtype, dev, fused, quant,
+                        act_clip, calib_paths, blend, batch_size,
+                        partition_type, tta)
+        prepared = _prepared_for(prepared, input_path, dev)
+    model, forwards, inferers = sess["models"][0], sess["forwards"], sess["inferers"]
     pad_mult = max(model.max_stride, int(shape_bucket or 0))
-    inferers = {}
 
     def run_case(case, vols, devs, case_dir):
         v0 = vols[0]
@@ -940,5 +1012,4 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
                  for c, p in prob_out or ()]
         return jobs
 
-    return _case_loop(_prepared_for(prepared, input_path, dev), output_dir,
-                      run_case)
+    return _case_loop(prepared, output_dir, run_case)

@@ -33,6 +33,9 @@ class Volume:
         """Voxel counts in (nx, ny, nz) order (ITK GetSize convention)."""
         return np.asarray(self.data.shape[::-1], np.int64)
 
+    def astype(self, dtype) -> "Volume":
+        return Volume(self.data.astype(dtype), self.frame)
+
 
 _NIFTI_EXTS = (".nii", ".nii.gz")
 _MHA_EXTS = (".mha", ".mhd")

@@ -14,3 +14,14 @@ def get_network_module(name: str):
         raise NotImplementedError(f"network {name!r} is not ported yet "
                                   f"(ported: {', '.join(_PORTED)})")
     return importlib.import_module(f"segmentation3d_tpu_torch.models.{name}")
+
+
+def create_network(name: str, in_channels: int, out_channels: int, **kwargs):
+    """A new ``SegmentationNet`` of the network ``name``."""
+    mod = get_network_module(name)
+    return mod.SegmentationNet(in_channels=in_channels, out_channels=out_channels, **kwargs)
+
+
+def max_stride_of(name: str) -> int:
+    """Total down-sampling factor of the network ``name``."""
+    return get_network_module(name).max_stride()

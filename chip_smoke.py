@@ -41,33 +41,43 @@ NVIDIA GPU:
    second seed, a 512x512x160 case) through the pipelined case loop; the
    main case's mask must equal 4's, and volumes/min over the batch is
    printed beside the single case's and the read-ahead's decode threads;
-8. ensemble: ``-m a -m b --bf16`` against the float32 ensemble, and
+8. shard: several shards on the one card (a device list that repeats
+   ``cuda:0``): ``segmentation`` with 2 patch shards, bf16 and ``--int8``
+   (masks on >= 99.999% of 4's and 6's voxels; each engine's probabilities
+   within 1e-5 of its unsharded run's; 20 launches per batch), spatial
+   sharding of SLAB 64/48 over 1, 2 and 8 shards (masks equal, probabilities
+   within 1e-5; each on >= 99.9% of the unsharded SLAB engine's voxels; 20
+   launches per slab; peak memory per shard count), the CLI's
+   ``--num_devices -1`` (4's mask) and its ``--spatial_shard`` refusal on
+   one card, and two ``seg_infer`` processes in a gloo group over 7's
+   folder (each case once, masks equal to 7's);
+9. ensemble: ``-m a -m b --bf16`` against the float32 ensemble, and
    ``-m a -m a`` against 4's mask;
-9. tta: ``--bf16 --tta all`` against float32 ``--tta all``;
-10. c2f: ``--fine_model`` with a seeded 4 mm coarse net, ``--bf16`` and
+10. tta: ``--bf16 --tta all`` against float32 ``--tta all``;
+11. c2f: ``--fine_model`` with a seeded 4 mm coarse net, ``--bf16`` and
    ``--int8`` against float32;
-11. vbnet: a seeded full-width VB-Net, ``--bf16`` (the nn.Module, no kernel
+12. vbnet: a seeded full-width VB-Net, ``--bf16`` (the nn.Module, no kernel
    launch) against float32;
-12. convert: 4's model written as the original PyTorch toolkit saves it
+13. convert: 4's model written as the original PyTorch toolkit saves it
    (foreign names, no ``_kernel_layouts``); ``seg_infer --bf16`` through
    the positional importer, and on ``seg_convert``'s output, must each give
    4's mask voxel for voxel with 20 launches per batch; the import's and
    the conversion's seconds;
-13. serve: ``seg_serve``'s ``main`` in a thread on a Unix socket, session
+14. serve: ``seg_serve``'s ``main`` in a thread on a Unix socket, session
    caches emptied first: a bf16 server answers a ping, a burst of 7's three
    cases from three client threads (masks equal to 7's; a ping sent while
    the first runs answers before it ends; 20 launches per batch; model load
    and forward build once; at most one request prepared ahead) and one
    warm request; an int8 server calibrated on 4's case answers two
    requests (calibration once; masks equal to 6's calibrated mask); a
-   coarse-to-fine server one (10's bf16 mask); each request's seconds, the
+   coarse-to-fine server one (11's bf16 mask); each request's seconds, the
    burst's volumes/min beside 7's and peak device memory;
-14. train_step: one SGD step of a seeded full-width V-Net on a seeded
+15. train_step: one SGD step of a seeded full-width V-Net on a seeded
    2 x 64^3 batch on the card and on the CPU, in float32 (TF32 off) and in
    float64 (loss, every update, every BatchNorm buffer), then the median step time at
    8 x 96^3 in float32 and bf16 beside its bound (the forward's operations
    by forward hooks, equal to ``utils/flops.py:vnet_forward_flops``);
-15. train: ``seg_train`` on four seeded CT-like 256x256x160 cases with a
+16. train: ``seg_train`` on four seeded CT-like 256x256x160 cases with a
    two-organ label and one validation case (bf16, batch 8 x 96^3, 32
    steps, two save points): the loss falls, ``thin_conv3d`` launches 20
    times per validation forward and ``window_conv_i8`` never, the folded
@@ -662,7 +672,7 @@ def phase_main(torch, tc, workdir, gpu):
     check(agree >= AGREE_MIN, f"bf16/f32 agreement {agree} < {AGREE_MIN}")
     check(dice >= DICE_MIN, f"bf16/f32 foreground Dice {dice} < {DICE_MIN}")
     check(dprob <= DPROB_MAX, f"bf16/f32 max |dprob| {dprob} > {DPROB_MAX}")
-    return dict(launches=launches, run=run, f32=f32, body=body, ct=ct,
+    return dict(launches=launches, run=run, f32=f32, body=body, ct=ct, shape=shape,
                 n_batches=n_batches, model_dir=model_dir, norm=norm,
                 bf16_mask=first["mask"], bf16_out=first["out"], serial=second,
                 workdir=workdir, part=part)
@@ -907,10 +917,255 @@ def phase_pipeline(torch, tc, ctx, gpu):
          decode_threads=default_decoders(), setup_seconds=setup, gpu=gpu)
     check(differ == 0, f"the pipelined main case differs from the main path's "
           f"bf16 mask in {differ} voxels")
-    ctx["pipeline"] = dict(folder=folder, out=out, volumes_per_min=60.0 * len(res) / wall)
+    ctx["pipeline"] = dict(folder=folder, out=out, volumes_per_min=60.0 * len(res) / wall,
+                           wall=wall)
     for name in ("b_seed1", "c_short"):
         check(FG_BODY[0] <= fg[name] <= FG_BODY[1],
               f"{name}: foreground is {fg[name]} of the body, outside {FG_BODY}")
+
+#: shard phase: agreement of a patch-sharded run's mask with the unsharded
+#: run's (sharding reassociates float32 sums, so an argmax near-tie may
+#: flip), the largest probability gap between the engines' outputs
+#: (tests/test_spatial_shard.py's bar), and the z-sharded runs' agreement
+#: with the unsharded SLAB engine (its 3-D weight map floors at 1e-3 of its
+#: peak; the z-only profile does not: tests/test_spatial_shard.py:137)
+SHARD_AGREE_MIN = 0.99999
+SHARD_DPROB_MAX = 1e-5
+SLAB_AGREE_MIN = 0.999
+SLAB_PZ, SLAB_SZ, SLAB_COUNT = 64, 48, 7  # 7 slabs of 64 x 384 x 384 over z = 320
+
+RANK_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from segmentation3d_tpu_torch.cli.seg_infer import main
+from segmentation3d_tpu_torch.ops import thin_conv as tc
+tc.thin_conv3d.launches = 0
+res = main(sys.argv[2:])
+print(json.dumps({"cases": [r[0] for r in res], "launches": tc.thin_conv3d.launches}))
+"""
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_shard(torch, tc, wi, ctx, gpu):
+    """Several shards on the one card, through the entry points a user
+    calls, each held against its unsharded run; two ``seg_infer`` processes
+    in a gloo group. Returns the launches by path: ``(thin_conv3d,
+    window_conv_i8)``."""
+    import numpy as np
+    from segmentation3d_tpu_torch.cli.seg_infer import main as seg_infer
+    from segmentation3d_tpu_torch.core.infer_engine import SlidingWindowInferer
+    from segmentation3d_tpu_torch.core.seg_infer import (
+        build_forward, load_seg_model, prep_channels, segmentation)
+    from segmentation3d_tpu_torch.core.spatial_shard import SpatialShardedInferer
+    from segmentation3d_tpu_torch.io import read_image
+    from segmentation3d_tpu_torch.ops.geometry import resampled_frame
+    dev = torch.device("cuda", 0)
+    ct, model_dir, workdir, nb = ctx["ct"], ctx["model_dir"], ctx["workdir"], ctx["n_batches"]
+    size = dict(partition_type="SIZE", partition_size=[PATCH] * 3,
+                partition_stride=[64] * 3)
+    slab = dict(partition_type="SLAB", partition_size=[SLAB_PZ] * 3,
+                partition_stride=[SLAB_SZ] * 3)
+
+    def entry(tag, **kw):
+        """One case through segmentation() with the launches it made."""
+        out = os.path.join(workdir, tag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tc.thin_conv3d.launches = wi.window_conv_i8.launches = 0
+        t0 = time.perf_counter()
+        res = segmentation(ct, model_dir, out, dtype=torch.bfloat16, **kw)
+        wall = time.perf_counter() - t0
+        launches = (tc.thin_conv3d.launches, wi.window_conv_i8.launches)
+        mask = read_image(os.path.join(out, res[0][0], "seg.mha")).data
+        check(mask.shape == ctx["shape"], f"{tag}: mask shape {mask.shape}")
+        return dict(mask=mask, seconds=wall, stages=res[0][2], launches=launches,
+                    peak=torch.cuda.max_memory_allocated())
+
+    def agreement(a, b):
+        return float(np.mean(a == b))
+
+    # the engines' inputs: the main case on its padded 1 mm grid, as
+    # segmentation_one_case prepares it, and the forwards the entry builds
+    model = load_seg_model(model_dir, dev)
+    vol = read_image(ct)
+    _, valid = resampled_frame(vol.frame, vol.size_xyz, model.spacing, 1)
+    frame, grid = resampled_frame(vol.frame, vol.size_xyz, model.spacing, 64)
+    iso = prep_channels(model, [vol], None, frame, grid, valid, 0.0, dev)
+    del vol
+    fwd = {"bf16": build_forward(model, torch.bfloat16, dev),
+           "int8": build_forward(model, torch.bfloat16, dev, quant="int8")}
+
+    def engine_gap(f, n):
+        """Largest probability gap and voxels differing between the SIZE
+        engine on ``n`` shards and unsharded, at the iso grid."""
+        kw = dict(batch_size=BATCH, blend="gaussian")
+        m1, p1 = SlidingWindowInferer(f, (PATCH,) * 3, 2, **kw)(
+            iso, stride_zyx=(64,) * 3, return_prob=True)
+        mn, pn = SlidingWindowInferer({dev: f}, (PATCH,) * 3, 2, devices=[dev] * n, **kw)(
+            iso, stride_zyx=(64,) * 3, return_prob=True)
+        return (pn - p1).abs().max().item(), int((mn != m1).sum().item())
+
+    # (a), (b): patch sharding over 2 shards of the card, bf16 and int8
+    patch = {}
+    for tag, quant, ref, expect in (("bf16", None, ctx["bf16_mask"], (20 * nb, 0)),
+                                    ("int8", "int8", ctx["int8_prob_mask"],
+                                     (nb, 19 * nb))):
+        r = entry(f"shard_{tag}", device=[dev] * 2, quant=quant, **size)
+        gap, differ = engine_gap(fwd[tag], 2)
+        patch[tag] = dict(seconds=r["seconds"], stages=r["stages"],
+                          max_memory_allocated=r["peak"], launches=r["launches"],
+                          agreement_with_unsharded=agreement(r["mask"], ref),
+                          engine_max_abs_dprob=gap, engine_voxels_differing=differ)
+        check(r["launches"] == expect,
+              f"2 patch shards ({tag}) launched (thin_conv3d, window_conv_i8) "
+              f"{r['launches']}, expected {expect}")
+        check(patch[tag]["agreement_with_unsharded"] >= SHARD_AGREE_MIN,
+              f"2 patch shards ({tag}) agree with the unsharded mask on "
+              f"{patch[tag]['agreement_with_unsharded']} < {SHARD_AGREE_MIN}")
+        check(gap <= SHARD_DPROB_MAX,
+              f"2 patch shards ({tag}): max |dprob| {gap} > {SHARD_DPROB_MAX}")
+
+    # (c): spatial sharding of SLAB 64/48 over 1, 2 and 8 shards
+    D = int(iso.shape[0])
+    check(D == 320, f"the iso grid has {D} planes, not 320")
+    slab_m = SlidingWindowInferer(fwd["bf16"], (SLAB_PZ,) + tuple(iso.shape[1:3]), 2,
+                                  batch_size=1, blend="gaussian")(
+        iso, stride_zyx=(SLAB_SZ,) + tuple(iso.shape[1:3]))
+    spatial, ref = {}, None
+    for n in (1, 2, 8):
+        inf = SpatialShardedInferer({dev: fwd["bf16"]}, SLAB_PZ, 2, [dev] * n,
+                                    stride_z=SLAB_SZ)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tc.thin_conv3d.launches = 0
+        t0 = time.perf_counter()
+        m, p = inf(iso, return_prob=True)
+        torch.cuda.synchronize()
+        seconds, launches = time.perf_counter() - t0, tc.thin_conv3d.launches
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()  # again, with the allocator's blocks cached
+        inf(iso)
+        torch.cuda.synchronize()
+        # the peak of the 2- and 8-shard runs holds the 1-shard run's prob
+        # and mask for the comparison (0.42 GB)
+        row = dict(seconds=seconds, seconds_again=time.perf_counter() - t0,
+                   launches=launches, max_memory_allocated=peak,
+                   planes_per_shard=-(-max(D, SLAB_PZ) // n),
+                   agreement_with_slab=float((m == slab_m).float().mean().item()))
+        if ref is None:
+            ref = (m, p)
+        else:
+            row.update(max_abs_dprob_vs_1=(p - ref[1]).abs().max().item(),
+                       voxels_differing_vs_1=int((m != ref[0]).sum().item()))
+        spatial[n] = row
+        check(row["launches"] == 20 * SLAB_COUNT,
+              f"{n} z-shards launched thin_conv3d {row['launches']} times, "
+              f"expected 20 x {SLAB_COUNT}")
+        check(row["agreement_with_slab"] >= SLAB_AGREE_MIN,
+              f"{n} z-shards agree with the SLAB engine on "
+              f"{row['agreement_with_slab']} < {SLAB_AGREE_MIN}")
+        if n > 1:
+            check(row["voxels_differing_vs_1"] == 0,
+                  f"{n} z-shards' mask differs from 1 shard's in "
+                  f"{row['voxels_differing_vs_1']} voxels")
+            check(row["max_abs_dprob_vs_1"] <= SHARD_DPROB_MAX,
+                  f"{n} z-shards: max |dprob| {row['max_abs_dprob_vs_1']} vs 1 shard")
+        del m, p
+    del ref, slab_m, iso, fwd
+    # the entry point: 8 z-shards against the unsharded SLAB path
+    sp8 = entry("shard_spatial8", device=[dev] * 8, spatial_shard=True, **slab)
+    slab1 = entry("shard_slab", device=dev, **slab)
+    spatial_entry = dict(seconds=sp8["seconds"], stages=sp8["stages"],
+                         max_memory_allocated=sp8["peak"], launches=sp8["launches"][0],
+                         slab_seconds=slab1["seconds"],
+                         slab_max_memory_allocated=slab1["peak"],
+                         agreement_with_slab=agreement(sp8["mask"], slab1["mask"]))
+    check(sp8["launches"] == (20 * SLAB_COUNT, 0),
+          f"segmentation(spatial_shard, 8 shards) launched {sp8['launches']}")
+    check(spatial_entry["agreement_with_slab"] >= SLAB_AGREE_MIN,
+          f"segmentation(spatial_shard, 8 shards) agrees with the SLAB path on "
+          f"{spatial_entry['agreement_with_slab']} < {SLAB_AGREE_MIN}")
+
+    # (d): the CLI on the card
+    out = os.path.join(workdir, "shard_cli_all")
+    tc.thin_conv3d.launches = 0
+    res = seg_infer(["-i", ct, "-m", model_dir, "-o", out, "--bf16",
+                     "--num_devices", "-1"] + ctx["part"])
+    cli_launches = tc.thin_conv3d.launches
+    cli_mask = read_image(os.path.join(out, res[0][0], "seg.mha")).data
+    cli_differ = int(np.sum(cli_mask != ctx["bf16_mask"]))
+    count = torch.cuda.device_count()
+    check(cli_launches == 20 * nb, f"--num_devices -1 launched {cli_launches}")
+    check(cli_differ == 0 if count == 1 else
+          agreement(cli_mask, ctx["bf16_mask"]) >= SHARD_AGREE_MIN,
+          f"--num_devices -1 on {count} card(s) differs from the main path's "
+          f"mask in {cli_differ} voxels")
+    refusal = None
+    if count == 1:
+        try:
+            seg_infer(["-i", ct, "-m", model_dir, "-o", out, "--bf16", "--spatial_shard",
+                       "--num_devices", "2", "--partition_type", "SLAB"])
+        except ValueError as e:
+            refusal = str(e)
+        check(refusal == "spatial_shard requires num_devices > 1",
+              f"--spatial_shard --num_devices 2 on one card: {refusal!r}")
+
+    # (e): two processes on the one card, over the pipeline phase's folder
+    pipe = ctx["pipeline"]
+    out = os.path.join(workdir, "shard_two_procs")
+    argv = ["-i", pipe["folder"], "-m", model_dir, "-o", out, "--bf16"] + ctx["part"]
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_SCRIPT, HERE] + argv,
+                              env=dict(env, RANK=str(rank)), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    pair_wall = time.perf_counter() - t0
+    for rank, (p, (so, se)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"seg_infer rank {rank} exited {p.returncode}: "
+              f"{se.strip()[-2000:]}")
+    ranks = [json.loads(so.strip().splitlines()[-1]) for so, _ in outs]
+    check([r["cases"] for r in ranks] == [["a_main", "c_short"], ["b_seed1"]],
+          f"the two processes ran {[r['cases'] for r in ranks]}")
+    check([r["launches"] for r in ranks] == [
+        20 * (PIPE_BATCHES["a_main"] + PIPE_BATCHES["c_short"]),
+        20 * PIPE_BATCHES["b_seed1"]], f"rank launches {ranks}")
+    differ = {}
+    for name in PIPE_BATCHES:
+        a = read_image(os.path.join(out, name, "seg.mha")).data
+        b = read_image(os.path.join(pipe["out"], name, "seg.mha")).data
+        differ[name] = int(np.sum(a != b))
+    check(not any(differ.values()), f"two processes' masks differ from the "
+          f"pipeline's: {differ}")
+    emit("shard", patch=patch, spatial_engine=spatial, spatial_entry=spatial_entry,
+         cli_num_devices_all=dict(devices=count, launches=cli_launches,
+                                  voxels_differing_from_main_path=cli_differ,
+                                  spatial_refusal=refusal),
+         two_processes=dict(wall_seconds=pair_wall,
+                            volumes_per_min=60.0 * len(PIPE_BATCHES) / pair_wall,
+                            pipeline_wall_seconds=pipe["wall"],
+                            pipeline_volumes_per_min=pipe["volumes_per_min"],
+                            ranks=ranks, voxels_differing=differ),
+         gpu=gpu)
+    thin = {"segmentation, 2 patch shards (bf16)": patch["bf16"]["launches"][0],
+            "segmentation, 2 patch shards (int8 stems)": patch["int8"]["launches"][0],
+            "segmentation, 8 z-shards (SLAB 64/48)": sp8["launches"][0],
+            "seg_infer --num_devices -1": cli_launches,
+            "seg_infer, 2 processes (rank 0 + rank 1)": sum(r["launches"] for r in ranks)}
+    return thin, {"segmentation, 2 patch shards (int8)": patch["int8"]["launches"][1]}
 
 
 def save_model(torch, ctx, tag, net, net_name="vnet", spacing=1.0):
@@ -1723,6 +1978,7 @@ def main():
         launches_formats = phase_formats(torch, tc, ctx, gpu)
         launches_i8 = phase_main_int8(torch, tc, wi, ctx, gpu)
         phase_pipeline(torch, tc, ctx, gpu)
+        launches_shard, launches_shard_i8 = phase_shard(torch, tc, wi, ctx, gpu)
         phase_ensemble(torch, tc, ctx, gpu)
         phase_tta(torch, tc, ctx, gpu)
         phase_c2f(torch, tc, wi, ctx, gpu)
@@ -1733,13 +1989,14 @@ def main():
         launches_train = phase_train(torch, tc, wi, workdir, gpu)
 
     thin_paths = {"seg_infer --bf16": ctx["launches"], **launches_formats,
-                  **launches_convert, **launches_serve,
+                  **launches_shard, **launches_convert, **launches_serve,
                   "seg_train (validation)": launches_train}
     thin = kernel_entry("thin_conv3d", "segmentation3d_tpu_torch/csrc/thin_conv3d.cu",
                         "segmentation3d_tpu/ops/pallas_conv.py:174",
                         sum(thin_paths.values()), sites, PEAK_BF16_FLOPS, "flops")
     thin["launches_by_path"] = thin_paths
-    i8_paths = {"seg_infer --int8": launches_i8, **launches_serve_i8}
+    i8_paths = {"seg_infer --int8": launches_i8, **launches_shard_i8,
+                **launches_serve_i8}
     i8 = kernel_entry("window_conv_i8", "segmentation3d_tpu_torch/csrc/window_conv_i8.cu",
                       "segmentation3d_tpu/ops/pallas_i8win.py:144",
                       sum(i8_paths.values()), sites_i8, PEAK_INT8_OPS, "ops")

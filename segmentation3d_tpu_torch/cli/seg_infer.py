@@ -7,6 +7,7 @@
         [--partition_stride X Y Z] [--batch_size 8] [--blend gaussian]
         [--post largest_cc|remove_small_cc] [--checkpoint WHICH]
         [--int8 [--act_clip A] [--int8_calib IMG[,IMG2..]]] [--tta AXES]
+        [--num_devices N [--spatial_shard]]
         [--fine_model <model_dir> [--fine_model ..] [--roi_margin 16]
          [--coarse_checkpoint WHICH] [--fine_checkpoint WHICH]]
 
@@ -14,8 +15,13 @@
 int8 forward (and implies ``--bf16``). A repeated ``-m`` is an ensemble;
 ``--fine_model`` runs coarse-to-fine with ``-m`` as the coarse model. The
 JAX CLI's rules for these options hold (``SystemExit`` with its messages).
-``--num_devices`` other than 1 and ``--spatial_shard`` need several GPUs,
-which this port does not drive yet: they are refused with an error.
+``--num_devices N`` (-1: every GPU from ``-g`` on; on the CPU, N CPU
+shards) splits each volume's patch batches over the devices, or with
+``--spatial_shard`` and SLAB partitioning each volume's z axis. Under
+torchrun (``WORLD_SIZE`` > 1) each process joins a gloo group and runs its
+round-robin slice of the cases:
+
+    torchrun --nproc_per_node 1 --nnodes N ... -m segmentation3d_tpu_torch.cli.seg_infer ...
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 
 from segmentation3d_tpu_torch.core.coarse_to_fine import segmentation_coarse_to_fine
 from segmentation3d_tpu_torch.core.seg_infer import DISABLE, segmentation
+from segmentation3d_tpu_torch.parallel import distributed
 
 
 def post_processing_from_args(args):
@@ -34,15 +41,6 @@ def post_processing_from_args(args):
     if args.post == "remove_small_cc":
         return {"type": "remove_small_cc", "threshold": args.post_threshold}
     return None
-
-
-def _not_ported(args):
-    """The first given option this port does not have yet, or None."""
-    checks = [
-        (args.num_devices != 1, "--num_devices other than 1"),
-        (args.spatial_shard, "--spatial_shard"),
-    ]
-    return next((name for given, name in checks if given), None)
 
 
 def check_option_rules(args):
@@ -136,23 +134,34 @@ def build_parser():
     parser.add_argument("--fine_checkpoint", default=None, metavar="WHICH",
                         help="coarse-to-fine: which checkpoint of the fine "
                              "model(s) ('latest'/'best'/epoch)")
-    # multi-GPU options of the JAX package, not ported yet: refused
     parser.add_argument("--num_devices", type=int, default=1,
-                        help="only 1 is ported")
-    parser.add_argument("--spatial_shard", action="store_true", help="not ported yet")
+                        help=">1 or -1 (all): shard each volume's patch "
+                             "batches over the GPUs from -g on")
+    parser.add_argument("--spatial_shard", action="store_true",
+                        help="with SLAB + --num_devices>1: z-shard each "
+                             "volume over the GPUs (halo exchange) instead "
+                             "of replicating it — for volumes too large for "
+                             "one GPU")
     return parser
 
 
 def main(argv=None):
     """Parse ``argv`` and run :func:`segmentation` (or, with
-    ``--fine_model``, :func:`segmentation_coarse_to_fine`); returns its
-    results."""
+    ``--fine_model``, :func:`segmentation_coarse_to_fine`); returns this
+    process's results. Under torchrun the process joins the gloo group of
+    its peers first, and leaves it at the end."""
     parser = build_parser()
     args = parser.parse_args(argv)
     check_option_rules(args)
-    missing = _not_ported(args)
-    if missing:
-        parser.error(f"{missing} is not ported to the PyTorch/CUDA package yet")
+    joined = distributed.initialize()
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _run(args):
     common = dict(
         input_path=args.input, output_dir=args.output, seg_name=args.seg_name,
         gpu_id=args.gpu_id, save_image=args.save_image,
@@ -162,7 +171,7 @@ def main(argv=None):
         dtype=torch.bfloat16 if (args.bf16 or args.int8) else torch.float32,
         quant="int8" if args.int8 else None, act_clip=args.act_clip,
         calib_image=args.int8_calib.split(",") if args.int8_calib else None,
-        tta=args.tta)
+        tta=args.tta, num_devices=args.num_devices)
     if args.fine_model:
         return segmentation_coarse_to_fine(
             coarse_model_dir=args.model[0],
@@ -176,7 +185,7 @@ def main(argv=None):
         model_dir=args.model[0] if len(args.model) == 1 else args.model,
         partition_type=args.partition_type,
         partition_size=args.partition_size, checkpoint=args.checkpoint,
-        **common)
+        spatial_shard=args.spatial_shard, **common)
 
 
 if __name__ == "__main__":

@@ -14,8 +14,8 @@ calibration done (the session caches of ``core.seg_infer`` and
 JSON protocol of :mod:`..core.serve`. Engine options are ``seg_infer``'s
 and are fixed at server start. ``-g N`` serves on ``cuda:N``; ``-g -1``
 asks for the CPU; without a CUDA device and without ``-g -1`` it raises.
-``--num_devices`` other than 1 and ``--spatial_shard`` need several GPUs,
-which this port does not drive yet: they are refused with an error.
+``--num_devices`` and ``--spatial_shard`` shard each request's volumes as
+in ``seg_infer``; the devices are chosen once, at server start.
 """
 from __future__ import annotations
 
@@ -25,11 +25,11 @@ import time
 
 import torch
 
-from segmentation3d_tpu_torch.cli.seg_infer import _not_ported, post_processing_from_args
+from segmentation3d_tpu_torch.cli.seg_infer import post_processing_from_args
 from segmentation3d_tpu_torch.core.coarse_to_fine import segmentation_coarse_to_fine
 from segmentation3d_tpu_torch.core.seg_infer import DISABLE, prepare_cases, segmentation
 from segmentation3d_tpu_torch.core.serve import SegmentationServer, serve_forever
-from segmentation3d_tpu_torch.utils.device import resolve_device
+from segmentation3d_tpu_torch.parallel import shard_devices
 
 
 def build_parser():
@@ -72,10 +72,8 @@ def build_parser():
                         help="int8 quantized forward (implies --bf16)")
     parser.add_argument("--act_clip", type=float, default=8.0)
     parser.add_argument("--int8_calib", default=None, metavar="IMAGE[,IMG2..]")
-    parser.add_argument("--num_devices", type=int, default=1,
-                        help="only 1 is ported")
-    parser.add_argument("--spatial_shard", action="store_true",
-                        help="not ported yet")
+    parser.add_argument("--num_devices", type=int, default=1)
+    parser.add_argument("--spatial_shard", action="store_true")
     parser.add_argument("--checkpoint", default=None, metavar="WHICH",
                         help="'latest' (default), 'best', or an epoch number")
     parser.add_argument("--tta", default=None, metavar="AXES")
@@ -112,17 +110,14 @@ def main(argv=None):
         if args.spatial_shard:
             parser.error("--spatial_shard applies to SLAB partitioning, not "
                          "the coarse-to-fine pipeline")
-    missing = _not_ported(args)
-    if missing:
-        parser.error(f"{missing} is not ported to the PyTorch/CUDA package yet")
-    dev = resolve_device(None, args.gpu_id)
+    devs = shard_devices(args.num_devices, None, args.gpu_id)
     common = dict(
         batch_size=args.batch_size, blend=args.blend,
         post_processing=post_processing_from_args(args),
         dtype=torch.bfloat16 if (args.bf16 or args.int8) else torch.float32,
         quant="int8" if args.int8 else None, act_clip=args.act_clip,
         calib_image=args.int8_calib.split(",") if args.int8_calib else None,
-        tta=args.tta, partition_stride=args.partition_stride, device=dev)
+        tta=args.tta, partition_stride=args.partition_stride, device=devs)
 
     if args.fine_model:
         def run_fn(input_path, output_dir, seg_name, save_image, save_prob,
@@ -144,6 +139,7 @@ def main(argv=None):
                 save_image=save_image, save_prob=save_prob,
                 partition_type=args.partition_type,
                 partition_size=args.partition_size,
+                spatial_shard=args.spatial_shard,
                 checkpoint=args.checkpoint, prepared=prepared, **common)
 
     if args.warmup:
@@ -155,7 +151,7 @@ def main(argv=None):
     def prep_fn(req):
         # the next request's case discovery + read-ahead (decode, upload on
         # its own CUDA stream) while the current request computes
-        return prepare_cases(str(req["input"]), device=dev)
+        return prepare_cases(str(req["input"]), device=devs[0])
 
     server = SegmentationServer(run_fn, ",".join(args.model),
                                 seg_name=args.seg_name)

@@ -16,8 +16,10 @@ behind, per-case failure isolation, ``prepared=``). ``fine_model_dir`` may
 be a list: a fine-fold ensemble averaged on the device, under the same
 contract checks as ``segmentation``. ``quant="int8"`` quantizes the fine
 models only; the coarse pass keeps full precision. ``tta`` mirror-averages
-the fine pass. Both models, their forwards and inferers are kept across
-calls in a session cache (``_C2F_SESSIONS``).
+the fine pass. ``num_devices`` (or a list of devices) splits the fine
+pass's patch batches over the shards; the coarse pass stays on the first
+device. Both models, their forwards and inferers are kept across calls in
+a session cache (``_C2F_SESSIONS``).
 """
 from __future__ import annotations
 
@@ -30,13 +32,13 @@ from segmentation3d_tpu_torch.core.infer_engine import SlidingWindowInferer, tta
 from segmentation3d_tpu_torch.core.seg_infer import (
     SegModel, _calib_paths, _case_loop, _check_ensemble_contract,
     _closed_on_error, _DeferredVolume, _model_dirs, _prepared_for, _StageClock,
-    build_forward, checkpoint_identity, deferred_outputs, ensemble_forward,
-    load_seg_model, prep_channels,
+    build_forward, build_forwards, checkpoint_identity, deferred_outputs,
+    ensemble_forward, load_seg_model, prep_channels,
 )
 from segmentation3d_tpu_torch.io import Volume
 from segmentation3d_tpu_torch.ops.geometry import Frame, resampled_frame
 from segmentation3d_tpu_torch.ops.resample import NN, resample_exec, resample_plan
-from segmentation3d_tpu_torch.utils.device import resolve_device
+from segmentation3d_tpu_torch.parallel import shard_devices
 
 
 def _post_prob_roi(prob, kind, coeffs, out_shape):
@@ -192,7 +194,8 @@ def segment_case_coarse_to_fine(
     fvol = prep_channels(fine, vols, dev_data, f_frame, f_size,
                          np.concatenate([f_off, f_valid]), fill_value, device)
     clock.mark("forward")
-    fine_seg, prob = ensemble_forward(fine_inferers, fvol, stride_zyx)
+    fine_seg, prob = ensemble_forward(fine_inferers, fvol, stride_zyx,
+                                      return_prob=save_prob)
     del fvol
 
     # ---- paste the fine labels back into the native frame -----------------
@@ -217,11 +220,15 @@ def _build_c2f_session(coarse_model_dir, fine_model_dirs, dtype, patch,
                        coarse_checkpoint=None, fine_checkpoint=None):
     """Load both models, build their forwards and the fine inferer(s).
 
+    ``device``: a device, or a shard list (the fine pass's shards; the
+    coarse model and pass stay on its first device).
     ``quant="int8"`` quantizes the fine models (the fine pass dominates
     the two-pass time; ``calib_paths`` calibrates each of them as
     ``seg_infer --int8_calib`` does); the coarse pass keeps full precision.
     The patch rounds up to the fine model's stride (SIZE semantics); an
     equal stride (constant blend) follows the patch."""
+    devices = list(device) if isinstance(device, (list, tuple)) else [device]
+    device = devices[0]
     coarse = load_seg_model(coarse_model_dir, device, checkpoint=coarse_checkpoint)
     fines = [load_seg_model(d, device, checkpoint=fine_checkpoint)
              for d in fine_model_dirs]
@@ -233,10 +240,11 @@ def _build_c2f_session(coarse_model_dir, fine_model_dirs, dtype, patch,
     # tta applies to the FINE pass only: the coarse pass exists to find the
     # ROI, where mirror averaging buys nothing the margin doesn't already
     fine_inferers = [SlidingWindowInferer(
-        build_forward(f, dtype, device, quant=quant, act_clip=act_clip,
-                      calib_paths=calib_paths),
+        build_forwards(f, dtype, devices, quant=quant, act_clip=act_clip,
+                       calib_paths=calib_paths),
         patch_eff, f.out_channels, batch_size=batch_size,
-        blend=blend if stride_eff != patch_eff else "constant", tta=tta)
+        blend=blend if stride_eff != patch_eff else "constant", tta=tta,
+        devices=devices)
         for f in fines]
     return {"coarse": coarse, "coarse_forward": build_forward(coarse, dtype, device),
             "coarse_inferers": {}, "fines": fines, "fine_inferers": fine_inferers,
@@ -258,7 +266,8 @@ def segmentation_coarse_to_fine(
         dtype=torch.float32, save_image=False, save_prob=False,
         post_processing=None, quant=None, act_clip=8.0, calib_image=None,
         tta=None, blend="gaussian", shape_bucket=32, coarse_checkpoint=None,
-        fine_checkpoint=None, prepared=None, gpu_id=0, device=None):
+        fine_checkpoint=None, prepared=None, gpu_id=0, device=None,
+        num_devices=1):
     """Segment all cases found at ``input_path`` in two passes into
     ``output_dir`` — ``segmentation``'s surface for the two-pass pipeline,
     with a checkpoint selector per model (``coarse_checkpoint``,
@@ -266,13 +275,17 @@ def segmentation_coarse_to_fine(
     / ``partition_stride`` (xyz) tile the fine grid; ``margin_mm`` widens
     the ROI. ``save_prob`` maps are exact inside the ROI and [1, 0, ...]
     outside. Runs on ``cuda:<gpu_id>`` unless ``device`` says otherwise.
-    Returns ``[(case_name, seconds, seconds_by_stage)]``."""
+    ``num_devices`` (or ``device`` as a list, one entry per shard) shards
+    the fine pass's patch batches as :func:`..core.seg_infer.segmentation`
+    does; the coarse pass runs on the first device. Returns
+    ``[(case_name, seconds, seconds_by_stage)]`` for this process's cases."""
     with _closed_on_error(prepared):
         if quant not in (None, "int8"):
             raise ValueError(f"quant {quant!r} is not one of None, 'int8'")
         calib_paths = _calib_paths(calib_image, quant)
         tta = tta_axes(tta)
-        dev = resolve_device(device, gpu_id)
+        devs = shard_devices(num_devices, device, gpu_id)
+        dev = devs[0]
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         patch = tuple(int(v) for v in np.asarray(partition_size)[::-1])
@@ -282,11 +295,12 @@ def segmentation_coarse_to_fine(
         key = (checkpoint_identity(coarse_dir, coarse_checkpoint),
                tuple(checkpoint_identity(d, fine_checkpoint) for d in fine_dirs),
                dtype, patch, stride, int(batch_size), quant, float(act_clip),
-               tuple(calib_paths) if calib_paths else None, tta, blend, dev)
+               tuple(calib_paths) if calib_paths else None, tta, blend,
+               tuple(devs))
         sess = _C2F_SESSIONS.get(key)
         if sess is None:
             sess = _build_c2f_session(
-                coarse_dir, fine_dirs, dtype, patch, stride, batch_size, dev,
+                coarse_dir, fine_dirs, dtype, patch, stride, batch_size, devs,
                 quant=quant, act_clip=act_clip, calib_paths=calib_paths,
                 tta=tta, blend=blend, coarse_checkpoint=coarse_checkpoint,
                 fine_checkpoint=fine_checkpoint)

@@ -8,7 +8,14 @@ forwarded in batches; per-class probabilities are pasted into float32
 ``prob``/``wsum`` accumulators with a per-patch weight map (Gaussian or
 constant), divided by ``max(wsum, 1e-8)`` and reduced to a uint8 mask with
 ``argmax``, all on the device. The last batch may be shorter than the
-others. Single-device, as the JAX engine without a mesh.
+others.
+
+Several shards (``devices=``, the JAX engine's ``mesh=``): the box batches
+split into contiguous runs, one per shard; each shard pastes its run into
+accumulators of its own on its device (the volume is copied once to each
+distinct device), and the first device adds them up in shard order, the
+counterpart of the JAX engine's one ``psum``. Sharding one volume in z
+lives in :mod:`.spatial_shard`.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import numpy as np
 import torch
 
 from segmentation3d_tpu_torch.ops.geometry import partition_boxes
+from segmentation3d_tpu_torch.parallel.devices import ShardStreams
+from segmentation3d_tpu_torch.utils.device import no_tf32, resolve_device
 
 
 def make_weight_map(patch_size_zyx, kind: str = "gaussian", sigma_scale: float = 0.125):
@@ -68,14 +77,18 @@ def tta_flip_combos(axes):
 class SlidingWindowInferer:
     """Whole-volume inference: partition -> batched forward -> blend.
 
-    ``forward(patches [B,pd,ph,pw,Cin]) -> probabilities [B,pd,ph,pw,NC]``.
-    ``tta``: test-time mirror augmentation over the named patch axes (see
-    :func:`tta_axes`): each batch's probabilities are averaged over every
-    flip combination, 2^n forwards per batch.
+    ``forward(patches [B,pd,ph,pw,Cin]) -> probabilities [B,pd,ph,pw,NC]``,
+    or a dict of such forwards by device: the one of the device a batch is
+    on runs it. ``tta``: test-time mirror augmentation over the named patch
+    axes (see :func:`tta_axes`): each batch's probabilities are averaged
+    over every flip combination, 2^n forwards per batch. ``devices``: one
+    entry per shard (a device may repeat); with more than one, the box
+    batches are split over the shards and ``forward`` must be a dict that
+    holds each of their devices.
     """
 
     def __init__(self, forward, patch_size_zyx, num_classes, batch_size=8,
-                 blend="gaussian", tta=None):
+                 blend="gaussian", tta=None, devices=None):
         self.forward = forward
         self.patch_size = tuple(int(v) for v in patch_size_zyx)
         self.num_classes = int(num_classes)
@@ -85,6 +98,10 @@ class SlidingWindowInferer:
         self.blend = blend
         self.tta = tta_axes(tta)
         self._tta_flips = tta_flip_combos(self.tta)
+        # as the JAX engine drops a mesh of one device
+        self.devices = [resolve_device(d) for d in devices] \
+            if devices is not None and len(devices) > 1 else None
+        self._streams = ShardStreams(self.devices) if self.devices else None
 
     def boxes_for(self, vol_shape_zyx, stride_zyx=None):
         """Patch start coordinates (N,3) zyx for a volume shape."""
@@ -95,15 +112,71 @@ class SlidingWindowInferer:
         boxes_xyz = partition_boxes(size_xyz, (pw, ph, pd), np.asarray(stride_zyx)[::-1])
         return np.ascontiguousarray(boxes_xyz[:, ::-1])  # -> zyx starts
 
-    def _forward(self, patches):
+    def _forward_on(self, device):
+        return self.forward[device] if isinstance(self.forward, dict) else self.forward
+
+    def _forward(self, forward, patches):
         """The batch's probabilities in float32, averaged over the flips."""
-        out = self.forward(patches).to(torch.float32)
+        out = forward(patches).to(torch.float32)
         for dims in self._tta_flips:
             out = out + torch.flip(
-                self.forward(torch.flip(patches, dims)).to(torch.float32), dims)
+                forward(torch.flip(patches, dims)).to(torch.float32), dims)
         if self._tta_flips:
             out = out / np.float32(1 + len(self._tta_flips))
         return out
+
+    def _accumulators(self, vol):
+        """Zero ``prob [D,H,W,NC]`` and ``wsum [D,H,W,1]`` on ``vol``'s device."""
+        shape = tuple(vol.shape[:3])
+        return (torch.zeros(shape + (self.num_classes,), dtype=torch.float32,
+                            device=vol.device),
+                torch.zeros(shape + (1,), dtype=torch.float32, device=vol.device))
+
+    def _paste(self, vol, batches, prob, wsum):
+        """Forward each batch of box starts and paste its weighted
+        probabilities into ``prob``/``wsum``, on ``vol``'s device."""
+        pd, ph, pw = self.patch_size
+        forward = self._forward_on(vol.device)
+        weight = torch.from_numpy(make_weight_map(self.patch_size, self.blend)).to(vol.device)
+        for bxs in batches:
+            patches = torch.stack([vol[z:z + pd, y:y + ph, x:x + pw]
+                                   for z, y, x in bxs.tolist()])
+            probs = self._forward(forward, patches)
+            for (z, y, x), p in zip(bxs.tolist(), probs):
+                prob[z:z + pd, y:y + ph, x:x + pw] += p * weight
+                wsum[z:z + pd, y:y + ph, x:x + pw] += weight
+
+    def _sharded(self, vol, batches):
+        """``(prob, wsum)`` on ``vol``'s device, the sum in shard order of
+        each shard's accumulators over its contiguous run of batches (the
+        JAX engine's split of the padded batch axis over ``P("data")``,
+        without its all-padding batches)."""
+        n, streams = len(self.devices), self._streams
+        per = -(-len(batches) // n)
+        runs = {}
+        for k, dev in enumerate(self.devices):
+            if k * per < len(batches):
+                runs.setdefault(dev, []).append((k, batches[k * per:(k + 1) * per]))
+        streams.start()
+        local = {dev: streams.scatter(vol, dev) for dev in runs}
+
+        def work(dev):
+            out = []
+            for k, run in runs.get(dev, ()):
+                prob, wsum = self._accumulators(local[dev])
+                self._paste(local[dev], run, prob, wsum)
+                out.append((k, prob, wsum))
+            return out
+        shards = sorted(sum(streams.run(work).values(), []), key=lambda s: s[0])
+        prob = wsum = None
+        for _, p, w in shards:  # into the first shard's pair, in shard order
+            p, w = streams.gather(p), streams.gather(w)
+            if prob is None:
+                prob, wsum = p, w
+            else:
+                prob += p
+                wsum += w
+        return prob, wsum
 
     @torch.inference_mode()
     def dice(self, vol, gt, valid_zyx, stride_zyx=None):
@@ -112,7 +185,10 @@ class SlidingWindowInferer:
         over the unpadded region ``valid_zyx`` (vz, vy, vx), reduced on
         ``vol``'s device: only ``2 * (num_classes - 1)`` numbers are read
         back. Returns a numpy float32 [NC-1] array of
-        ``2 * inter / max(|gt==c| + |pred==c|, 1)``."""
+        ``2 * inter / max(|gt==c| + |pred==c|, 1)``. Single-device."""
+        if self.devices is not None:
+            raise NotImplementedError("on-device dice is single-chip "
+                                      "(validation never builds a mesh)")
         seg = self(vol, stride_zyx=stride_zyx)
         vz, vy, vx = (int(v) for v in valid_zyx)
         seg = seg[:vz, :vy, :vx].to(torch.int32)
@@ -127,26 +203,22 @@ class SlidingWindowInferer:
     @torch.inference_mode()
     def __call__(self, vol, stride_zyx=None, return_prob=False):
         """Sliding-window inference over ``vol [D,H,W,Cin]`` (or [D,H,W]) on
-        its device. Returns ``mask [D,H,W] uint8`` (+ ``prob [D,H,W,NC]``
-        float32 when ``return_prob``)."""
+        its device (with shards: the first shard's). Returns ``mask [D,H,W]
+        uint8`` (+ ``prob [D,H,W,NC]`` float32 when ``return_prob``)."""
         if vol.dim() == 3:
             vol = vol[..., None]
-        pd, ph, pw = self.patch_size
-        dev = vol.device
-        weight = torch.from_numpy(make_weight_map(self.patch_size, self.blend)).to(dev)
-        prob = torch.zeros(tuple(vol.shape[:3]) + (self.num_classes,),
-                           dtype=torch.float32, device=dev)
-        wsum = torch.zeros(tuple(vol.shape[:3]) + (1,), dtype=torch.float32,
-                           device=dev)
+        if self.devices is not None and vol.device != self.devices[0]:
+            raise ValueError(f"the volume is on {vol.device}, not on the first "
+                             f"shard's device {self.devices[0]}")
         boxes = self.boxes_for(tuple(vol.shape[:3]), stride_zyx)
-        for i in range(0, len(boxes), self.batch_size):
-            bxs = boxes[i:i + self.batch_size]
-            patches = torch.stack([vol[z:z + pd, y:y + ph, x:x + pw]
-                                   for z, y, x in bxs.tolist()])
-            probs = self._forward(patches)
-            for (z, y, x), p in zip(bxs.tolist(), probs):
-                prob[z:z + pd, y:y + ph, x:x + pw] += p * weight
-                wsum[z:z + pd, y:y + ph, x:x + pw] += weight
+        batches = [boxes[i:i + self.batch_size]
+                   for i in range(0, len(boxes), self.batch_size)]
+        if self.devices is None:
+            prob, wsum = self._accumulators(vol)
+            self._paste(vol, batches, prob, wsum)
+        else:
+            with no_tf32():  # set once: the shards' threads share the flags
+                prob, wsum = self._sharded(vol, batches)
         prob = prob / torch.clamp_min(wsum, 1e-8)
         mask = torch.argmax(prob, dim=-1).to(torch.uint8)
         if return_prob:

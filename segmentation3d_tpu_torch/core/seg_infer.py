@@ -32,12 +32,20 @@ Loaded models, their forwards and the inferers are kept across calls in a
 session cache (``_SESSIONS``), as the JAX package keeps its compiled
 programs, so a server's second request loads, builds and calibrates nothing.
 
+Several devices: ``num_devices`` (or a list of devices, one per shard)
+splits each volume's patch batches over the shards, or with
+``spatial_shard`` the volume's z axis (:mod:`.spatial_shard`). Each
+distinct device gets its own copy of the forward's weights. Several
+processes (one per host, under torchrun): the case list is sliced
+round-robin, after the output names were made unique over the whole list.
+
 Left out on purpose: the JAX package's bit-packing of volumes and masks for
-its slow host link and its multi-host case slicing.
+its slow host link.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import os
 import queue
@@ -51,6 +59,7 @@ import numpy as np
 import torch
 
 from segmentation3d_tpu_torch.core.infer_engine import SlidingWindowInferer, tta_axes
+from segmentation3d_tpu_torch.core.spatial_shard import SpatialShardedInferer
 from segmentation3d_tpu_torch.io import Volume, read_image, write_image
 from segmentation3d_tpu_torch.models import get_network_module
 from segmentation3d_tpu_torch.ops.components import (
@@ -60,6 +69,7 @@ from segmentation3d_tpu_torch.ops.geometry import (
     num_partition_by_size, resampled_frame,
 )
 from segmentation3d_tpu_torch.ops.resample import NN, resample_exec, resample_plan
+from segmentation3d_tpu_torch.parallel import distinct, distributed, shard_devices
 from segmentation3d_tpu_torch.utils import model_io
 from segmentation3d_tpu_torch.utils.device import no_tf32, resolve_device
 from segmentation3d_tpu_torch.utils.normalizer import (
@@ -222,17 +232,24 @@ def module_forward(net, dtype):
     return forward
 
 
-def build_forward(model: SegModel, dtype, device, fused=None, quant=None,
-                  act_clip=8.0, calib_paths=None):
-    """``patches -> probabilities`` for one model: the int8 forward
-    (``quant``, calibrated on ``calib_paths`` when given), else the
-    BN-folded kernel forward (``fused``; default: bf16 on a CUDA device),
-    else the ``nn.Module`` forward. A bottleneck net, or one whose
-    activation the kernel's epilogue lacks (leaky_relu), has no folded
-    form: it runs the module forward, and ``quant`` raises the JAX
-    package's error."""
+def _foldable(model: SegModel) -> bool:
+    """Whether the net has the folded forms: not a bottleneck net, and an
+    activation the kernel's epilogue applies (not leaky_relu)."""
     from segmentation3d_tpu_torch.models.fused_vnet import FOLDED_ACTS
-    if model.net.bottleneck or model.net.act not in FOLDED_ACTS:
+    return not model.net.bottleneck and model.net.act in FOLDED_ACTS
+
+
+def build_forward(model: SegModel, dtype, device, fused=None, quant=None,
+                  act_clip=8.0, calib=None):
+    """``patches -> probabilities`` for one model on ``device`` (where
+    ``model.net`` is): the int8 forward (``quant``, with the activation
+    maxima ``calib`` when measured, see :func:`_calibrate_for_model`), else
+    the BN-folded kernel forward (``fused``; default: bf16 on a CUDA
+    device), else the ``nn.Module`` forward. A bottleneck net, or one
+    whose activation the kernel's epilogue lacks (leaky_relu), has no
+    folded form: it runs the module forward, and ``quant`` raises the JAX
+    package's error."""
+    if not _foldable(model):
         if quant is not None:
             raise ValueError(
                 f"quant={quant!r} requires the packed-domain forward, which "
@@ -240,8 +257,6 @@ def build_forward(model: SegModel, dtype, device, fused=None, quant=None,
         return module_forward(model.net, dtype)
     if quant is not None:
         from segmentation3d_tpu_torch.models.quant_vnet import build_int8_forward
-        calib = _calibrate_for_model(model, calib_paths, dtype, device) \
-            if calib_paths is not None else None
         return build_int8_forward(model.net, act_clip=act_clip, calib=calib,
                                   dtype=dtype)
     if fused is None:
@@ -250,6 +265,25 @@ def build_forward(model: SegModel, dtype, device, fused=None, quant=None,
         from segmentation3d_tpu_torch.models.fused_vnet import build_fused_forward
         return build_fused_forward(model.net, dtype=dtype)
     return module_forward(model.net, dtype)
+
+
+def build_forwards(model: SegModel, dtype, devices, fused=None, quant=None,
+                   act_clip=8.0, calib_paths=None):
+    """``{device: forward}`` (:func:`build_forward`) for each distinct device
+    of the shard list ``devices``; ``model.net`` is on the first, and every
+    other device gets a copy of it, so each holds its own folded or packed
+    weights. An int8 forward is calibrated on ``calib_paths`` once, on the
+    first device, and every device's forward takes those maxima."""
+    first, *rest = distinct(devices)
+    calib = None
+    if quant is not None and calib_paths is not None and _foldable(model):
+        calib = _calibrate_for_model(model, calib_paths, dtype, first)
+    models = {first: model}
+    for dev in rest:
+        models[dev] = copy.copy(model)
+        models[dev].net = copy.deepcopy(model.net).to(dev)
+    return {dev: build_forward(m, dtype, dev, fused, quant, act_clip, calib)
+            for dev, m in models.items()}
 
 
 def _upload(data, device):
@@ -355,11 +389,13 @@ def _check_ensemble_contract(models, model_dirs):
                 "must be folds of the same configuration")
 
 
-def ensemble_forward(inferers, vol, stride_zyx=None):
+def ensemble_forward(inferers, vol, stride_zyx=None, return_prob=True):
     """``(mask, prob)`` of ``inferers`` (one per ensemble member) on
     ``vol``: the mean of the members' class probabilities and its argmax
-    (one member: its own)."""
+    (one member: its own; its ``prob`` is None unless ``return_prob``)."""
     if len(inferers) == 1:
+        if not return_prob:
+            return inferers[0](vol, stride_zyx=stride_zyx), None
         return inferers[0](vol, stride_zyx=stride_zyx, return_prob=True)
     prob = inferers[0](vol, stride_zyx=stride_zyx, return_prob=True)[1]
     for inf in inferers[1:]:
@@ -497,7 +533,7 @@ def segmentation_one_case(model: SegModel, vols, inferers, device,
     vol = prep_channels(model, vols, dev_data, iso_frame, iso_size, valid,
                         0.0, device)
     clock.mark("forward")
-    seg_iso, prob = ensemble_forward(inferers, vol, stride_zyx)
+    seg_iso, prob = ensemble_forward(inferers, vol, stride_zyx, return_prob=save_prob)
     del vol
     clock.mark("back")
     back_kind, back_coeffs, back_shape = resample_plan(
@@ -773,18 +809,46 @@ class _WriteBehind:
         return self.failures
 
 
+def _process_slice(cases, process_index=None, process_count=None):
+    """This process's round-robin slice of the case list (several
+    processes, one per host); the identity in one process. Round-robin,
+    not contiguous blocks, so lists sorted by size balance across hosts."""
+    pc = distributed.process_count() if process_count is None else process_count
+    pi = distributed.process_index() if process_index is None else process_index
+    if pc <= 1:
+        return cases
+    return cases[pi::pc]
+
+
+def _announce_no_cases(n_global, input_path):
+    """Report an empty case slice: with several processes the global list
+    may hold cases that all went to other processes (more hosts than
+    cases), which is neither a data error nor 'no cases found'."""
+    if n_global:
+        print(f"note: empty case slice on process "
+              f"{distributed.process_index()}/{distributed.process_count()} "
+              f"({n_global} case(s) assigned to other processes)")
+    else:
+        print(f"warning: no cases found at {input_path}")
+
+
 class PreparedInput:
     """An input whose case discovery and two-stage read-ahead (decode +
     stored-dtype upload to ``device``) already started — built by
     :func:`prepare_cases`, consumed by :func:`segmentation` /
     ``segmentation_coarse_to_fine`` via ``prepared=``, so a caller can
-    overlap the next input's reads with the current one's device work."""
+    overlap the next input's reads with the current one's device work.
+    With several processes it holds this process's slice of the cases,
+    named over the whole list (two colliding names on two processes must
+    not share an output directory)."""
 
     def __init__(self, input_path, device):
         self.input_path = input_path
         self.device = device
-        self.cases = find_cases(input_path)
-        self.names = _case_names(self.cases)
+        cases = find_cases(input_path)
+        self.n_global = len(cases)
+        self.names = _process_slice(_case_names(cases))
+        self.cases = _process_slice(cases)
         self.reader = _ReadAhead(self.cases, device) if self.cases else None
 
     def close(self):
@@ -826,7 +890,7 @@ def _case_loop(prepared, output_dir, run_case, label="segmentation"):
     copy + post-processing), ``write``."""
     os.makedirs(output_dir, exist_ok=True)
     if not prepared.cases:
-        print(f"warning: no cases found at {prepared.input_path}")
+        _announce_no_cases(prepared.n_global, prepared.input_path)
         return []
     cases, failures = [], []
     writer = _WriteBehind(prepared.device)
@@ -913,27 +977,41 @@ _SESSIONS: dict = {}
 _SESSION_CAP = 4
 
 
-def _session(model_dirs, checkpoint, dtype, device, fused, quant, act_clip,
-             calib_paths, blend, batch_size, partition_type, tta):
-    """The session of this configuration, built (and cached) on first use.
-    A session is cached only once fully built, so a failing build leaves
-    nothing behind."""
+def _session(model_dirs, checkpoint, dtype, devices, fused, quant, act_clip,
+             calib_paths, blend, batch_size, partition_type, tta, spatial_shard):
+    """The session of this configuration on the shard list ``devices``,
+    built (and cached) on first use. A session is cached only once fully
+    built, so a failing build leaves nothing behind."""
     key = (tuple(checkpoint_identity(d, checkpoint) for d in model_dirs),
            dtype, bool(fused), blend, int(batch_size), partition_type, quant,
            float(act_clip), tuple(calib_paths) if calib_paths else None, tta,
-           device)
+           tuple(devices), bool(spatial_shard))
     sess = _SESSIONS.get(key)
     if sess is None:
-        models = [load_seg_model(d, device, checkpoint=checkpoint)
+        models = [load_seg_model(d, devices[0], checkpoint=checkpoint)
                   for d in model_dirs]
         _check_ensemble_contract(models, model_dirs)
-        forwards = [build_forward(m, dtype, device, fused, quant, act_clip,
-                                  calib_paths) for m in models]
+        forwards = [build_forwards(m, dtype, devices, fused, quant, act_clip,
+                                   calib_paths) for m in models]
         sess = {"models": models, "forwards": forwards, "inferers": {}}
         while len(_SESSIONS) >= _SESSION_CAP:
             _SESSIONS.pop(next(iter(_SESSIONS)))
         _SESSIONS[key] = sess
     return sess
+
+
+def _check_spatial_shard(spatial_shard, partition_type, devices, tta, model_dirs):
+    """The JAX package's rules for ``spatial_shard``, with its messages."""
+    if not spatial_shard:
+        return
+    if partition_type != SLAB:
+        raise ValueError("spatial_shard works with SLAB partitioning")
+    if len(devices) == 1:
+        raise ValueError("spatial_shard requires num_devices > 1")
+    if tta:
+        raise ValueError("tta is not supported with spatial_shard")
+    if len(model_dirs) > 1:
+        raise ValueError("ensembles are not supported with spatial_shard")
 
 
 def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
@@ -942,7 +1020,8 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
                  partition_stride=None, batch_size=8, blend="gaussian",
                  post_processing=None, dtype=torch.float32, fused=None,
                  shape_bucket=64, checkpoint=None, device=None, quant=None,
-                 act_clip=8.0, calib_image=None, tta=None, prepared=None):
+                 act_clip=8.0, calib_image=None, tta=None, prepared=None,
+                 num_devices=1, spatial_shard=False):
     """Segment all cases found at ``input_path`` into ``output_dir``.
 
     Runs on ``cuda:<gpu_id>`` unless ``device`` says otherwise (``"cpu"``,
@@ -961,9 +1040,19 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
     resampled volume ('x', 'zy', 'all'; 2^n forwards per patch batch).
     ``prepared``: a :func:`prepare_cases` of ``input_path`` whose reads
     already started (closed if this call fails before its cases run).
+    ``num_devices``: greater than 1, or -1 for all, splits each volume's
+    patch batches over that many devices from the first on
+    (:func:`..parallel.devices.shard_devices`); ``device`` may instead be a
+    list of devices, one per shard, that may repeat a device.
+    ``spatial_shard``: with SLAB partitioning and more than one shard,
+    z-shard each volume over the shards instead (no shard holds the whole
+    volume's accumulators). With several processes (torchrun, see
+    :mod:`..parallel.distributed`) each runs its round-robin slice of the
+    cases on its own devices.
     Models, forwards and inferers are kept in a session (``_SESSIONS``), so
     a repeated call with the same checkpoints and options loads, builds and
-    calibrates nothing. Returns ``[(case_name, seconds, seconds_by_stage)]``.
+    calibrates nothing. Returns ``[(case_name, seconds, seconds_by_stage)]``
+    for this process's cases.
     """
     with _closed_on_error(prepared):
         if quant not in (None, "int8"):
@@ -972,22 +1061,24 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
         if quant is not None and fused is False:
             raise ValueError("quant requires the fused forward (fused=False given)")
         tta = tta_axes(tta)  # normalized early: bad axis names fail every case
-        dev = resolve_device(device, gpu_id)
+        devs = shard_devices(num_devices, device, gpu_id)
+        dev = devs[0]
         model_dirs = _model_dirs(model_dir)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        _check_spatial_shard(spatial_shard, partition_type, devs, tta, model_dirs)
         if partition_type not in (DISABLE, SIZE, NUM, SLAB):
             raise NotImplementedError(f"partition_type {partition_type}")
         if fused is None:
             fused = dtype == torch.bfloat16 and dev.type == "cuda"
-        sess = _session(model_dirs, checkpoint, dtype, dev, fused, quant,
+        sess = _session(model_dirs, checkpoint, dtype, devs, fused, quant,
                         act_clip, calib_paths, blend, batch_size,
-                        partition_type, tta)
+                        partition_type, tta, spatial_shard)
         prepared = _prepared_for(prepared, input_path, dev)
     model, forwards, inferers = sess["models"][0], sess["forwards"], sess["inferers"]
     pad_mult = max(model.max_stride, int(shape_bucket or 0))
 
-    def run_case(case, vols, devs, case_dir):
+    def run_case(case, vols, uploads, case_dir):
         v0 = vols[0]
         _, iso_size = resampled_frame(v0.frame, v0.size_xyz, model.spacing,
                                       pad_mult)
@@ -996,15 +1087,21 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
             model.max_stride)
         key = (patch, stride)
         if key not in inferers:
-            inferers[key] = [SlidingWindowInferer(
-                f, patch, model.out_channels,
-                batch_size=1 if partition_type == SLAB else batch_size,
-                blend=blend if stride != patch else "constant", tta=tta)
-                for f in forwards]
+            if spatial_shard:  # one model (checked above)
+                inferers[key] = [SpatialShardedInferer(
+                    forwards[0], patch[0], model.out_channels, devs,
+                    stride_z=stride[0], blend=blend)]
+            else:
+                inferers[key] = [SlidingWindowInferer(
+                    f, patch, model.out_channels,
+                    batch_size=1 if partition_type == SLAB else batch_size,
+                    blend=blend if stride != patch else "constant", tta=tta,
+                    devices=devs)
+                    for f in forwards]
         mask_vol, prob_out, case.clock = segmentation_one_case(
             model, vols, inferers[key], dev, stride_zyx=stride,
             save_prob=save_prob, post_processing=post_processing,
-            shape_bucket=shape_bucket, dev_data=devs)
+            shape_bucket=shape_bucket, dev_data=uploads)
         jobs = [(mask_vol, os.path.join(case_dir, seg_name))]
         if save_image:
             jobs.append((v0, os.path.join(case_dir, "org.mha")))

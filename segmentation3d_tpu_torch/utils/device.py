@@ -8,8 +8,9 @@ import torch
 
 def resolve_device(device=None, gpu_id: int = 0) -> torch.device:
     """The device an entry point runs on: ``device`` when given, the CPU for
-    ``gpu_id < 0``, else ``cuda:<gpu_id>``. Raises when that needs a CUDA
-    device and none is available — there is no silent CPU path."""
+    ``gpu_id < 0``, else ``cuda:<gpu_id>``; a CUDA device named without an
+    index gets the current one. Raises when that needs a CUDA device and
+    none is available — there is no silent CPU path."""
     if device is not None:
         dev = torch.device(device)
     elif gpu_id is not None and int(gpu_id) < 0:
@@ -21,7 +22,9 @@ def resolve_device(device=None, gpu_id: int = 0) -> torch.device:
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' (CLI: -g -1) "
                 "to run on the CPU")
-        if dev.index is not None and dev.index >= torch.cuda.device_count():
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
             raise RuntimeError(f"{dev} does not exist "
                                f"({torch.cuda.device_count()} CUDA device(s))")
     return dev

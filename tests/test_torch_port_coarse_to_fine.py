@@ -158,6 +158,30 @@ def test_fine_ensemble(c2f, tmp_path):
     np.testing.assert_array_equal(a, b)
 
 
+def test_fine_pass_shards(c2f):
+    """``num_devices`` splits the fine pass's patch batches over the shards
+    (the coarse pass stays on the first device): JAX's run on a 3-device
+    mesh and the port's on 3 CPU shards agree by the pipeline's rule, and
+    the port's sharded mask is its unsharded one."""
+    d, img, coarse, fine = c2f
+    kw = dict(C2F, save_prob=False)
+    jc.segmentation_coarse_to_fine(img, coarse, fine, os.path.join(d, "jax_n3"),
+                                   num_devices=3, **kw)
+    tc.segmentation_coarse_to_fine(img, coarse, fine, os.path.join(d, "port_n3"),
+                                   device="cpu", num_devices=3, **kw)
+    sess = next(s for s in tc._C2F_SESSIONS.values()
+                if s["fine_inferers"][0].devices is not None)
+    assert sess["fine_inferers"][0].devices == [torch.device("cpu")] * 3
+    assert sess["coarse_inferers"] == {} or all(
+        i.devices is None for i in sess["coarse_inferers"].values())
+    tc.segmentation_coarse_to_fine(img, coarse, fine, os.path.join(d, "port_n1"),
+                                   device="cpu", **kw)
+    assert_same_mask(os.path.join(d, "port_n3"), os.path.join(d, "jax_n3"))
+    a, b = (jax_read(os.path.join(d, r, "case_mod0", "seg.mha")).data
+            for r in ("port_n3", "port_n1"))
+    np.testing.assert_array_equal(a, b)
+
+
 def test_empty_roi_gives_background(c2f, tmp_path):
     """A coarse model that finds no foreground: a background mask and
     probabilities [1, 0] everywhere, in both packages."""
@@ -216,7 +240,7 @@ ACCEPTED = [
      "--coarse_checkpoint", "2", "--fine_checkpoint", "best", "--tta", "x",
      "--partition_size", "32", "32", "32", "--partition_stride", "16", "16", "16",
      "--save_prob", "--save_image", "--post", "largest_cc", "--batch_size", "2",
-     "--blend", "constant", "--bf16"],
+     "--blend", "constant", "--bf16", "--num_devices", "2"],
     ["--fine_model", "f", "--int8", "--int8_calib", "a.nii.gz", "--act_clip", "5"],
 ]
 
@@ -224,7 +248,8 @@ ACCEPTED = [
 @pytest.mark.parametrize("extra", ACCEPTED, ids=lambda a: "_".join(a)[:40])
 def test_cli_flags_match_jax(extra, monkeypatch):
     """What the CLI hands segmentation_coarse_to_fine: every option as JAX's
-    CLI hands it (the dtype as the port's type), nothing refused."""
+    CLI hands it (the dtype as the port's type, ``num_devices`` for the
+    fine pass included), nothing refused."""
     calls = {}
 
     def record(tag):
@@ -236,7 +261,7 @@ def test_cli_flags_match_jax(extra, monkeypatch):
     jax_cli.main(BASE + extra)
     port_cli.main(BASE + extra + ["-g", "-1"])
     ref, got = calls["jax"], calls["port"]
-    assert ref.pop("num_devices") == 1 and got.pop("gpu_id") == -1
+    assert got.pop("gpu_id") == -1
     jdt, tdt = ref.pop("dtype"), got.pop("dtype")
     assert (jdt == jnp.bfloat16) == (tdt == torch.bfloat16)
     assert got == ref

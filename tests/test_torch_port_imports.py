@@ -41,7 +41,8 @@ MODULES = ["core.seg_infer", "core.infer_engine", "core.coarse_to_fine",
            "tools.host_io_probe",
            "compat", "compat.torch_import", "cli.seg_convert", "core.serve",
            "cli.seg_serve", "utils.image_tools", "utils.flops", "seg_infer",
-           "seg_train"]
+           "seg_train", "parallel", "parallel.devices", "parallel.distributed",
+           "core.spatial_shard"]
 
 
 def test_port_imports_no_jax():

@@ -374,3 +374,32 @@ def test_dicom_series_on_card_matches_cpu(cuda_device, tmp_path):
     np.testing.assert_array_equal(gpu, nii)
     assert np.mean(gpu == cpu) >= 0.999
     assert np.mean(gpu == ball) >= 0.98
+
+
+@pytest.mark.cuda
+def test_two_shards_on_one_card_match_unsharded(cuda_device):
+    """Patch sharding and z-sharding with 2 shards on one card: each shard
+    runs the folded forward's kernels on the shard stream's thread, and the
+    merge waits for it. Probabilities within 1e-5 of the unsharded runs
+    (sharding reassociates float32 sums), masks equal, 8 launches per
+    batch or slab."""
+    from segmentation3d_tpu_torch.core.infer_engine import SlidingWindowInferer
+    from segmentation3d_tpu_torch.core.spatial_shard import SpatialShardedInferer
+    net = SegmentationNet(1, 2, base_channels=4, down_convs=(1, 2),
+                          up_convs=(2, 1)).eval().to(cuda_device)
+    fwd = build_fused_forward(net, torch.bfloat16)
+    vol = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(48, 32, 32, 1)).astype(np.float32)).to(cuda_device)
+    shards = [cuda_device] * 2
+    for make, kw in ((lambda d: SlidingWindowInferer(fwd, (16, 16, 16), 2, batch_size=2,
+                                                     devices=d), dict(stride_zyx=(8, 8, 8))),
+                     (lambda d: SpatialShardedInferer(fwd, 16, 2, d or [cuda_device],
+                                                      stride_z=8), {})):
+        ref_m, ref_p = make(None)(vol, return_prob=True, **kw)
+        before = tc.thin_conv3d.launches
+        m, p = make(shards)(vol, return_prob=True, **kw)
+        torch.cuda.synchronize()
+        assert (tc.thin_conv3d.launches - before) % 8 == 0
+        assert tc.thin_conv3d.launches > before
+        assert (p - ref_p).abs().max().item() <= 1e-5
+        assert torch.equal(m, ref_m)

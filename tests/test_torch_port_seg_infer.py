@@ -110,12 +110,37 @@ def test_segmentation_refuses_silent_cpu(case):
 
 
 @pytest.mark.parametrize("extra", [["--num_devices", "2"], ["--spatial_shard"]])
-def test_cli_refuses_unported_options(extra, capsys):
-    with pytest.raises(SystemExit) as e:
-        seg_infer(["-i", "in.nii.gz", "-m", "model", "-o", "out", "-g", "-1"]
-                  + extra)
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+def test_cli_refuses_unported_options(extra, case, monkeypatch):
+    """Once refused, now ported: ``--num_devices`` and ``--spatial_shard``
+    reach segmentation() with the values the JAX CLI hands its own, and a
+    run raises what JAX's raises (``--spatial_shard`` alone: not SLAB) or
+    gives the unsharded mask (two CPU shards)."""
+    import segmentation3d_tpu.cli.seg_infer as jax_cli
+    import segmentation3d_tpu_torch.cli.seg_infer as port_cli
+    d, img, model_dir = case
+    argv = ["-i", img, "-m", model_dir, "-o", os.path.join(d, "opts")] + extra
+    calls = {}
+    with monkeypatch.context() as m:
+        for tag, mod in (("jax", jax_cli), ("port", port_cli)):
+            m.setattr(mod, "segmentation", lambda tag=tag, **kw: calls.update({tag: kw}))
+        jax_cli.main(argv)
+        port_cli.main(argv + ["-g", "-1"])
+    for key in ("num_devices", "spatial_shard"):
+        assert calls["port"][key] == calls["jax"][key]
+    if "--spatial_shard" in extra:
+        with pytest.raises(ValueError) as ref:
+            jax_cli.main(argv)
+        with pytest.raises(ValueError) as got:
+            seg_infer(argv + ["-g", "-1"])
+        assert str(got.value) == str(ref.value) == \
+            "spatial_shard works with SLAB partitioning"
+    else:
+        base = ["-i", img, "-m", model_dir, "-g", "-1"]
+        seg_infer(base + ["-o", os.path.join(d, "one_shard")])
+        seg_infer(base + ["-o", os.path.join(d, "two_shards")] + extra)
+        a, b = (jax_read(os.path.join(d, o, "case_mod0", "seg.mha")).data
+                for o in ("one_shard", "two_shards"))
+        np.testing.assert_array_equal(a, b)
 
 
 def test_cli_bf16_on_cpu(case):

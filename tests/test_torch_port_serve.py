@@ -270,8 +270,9 @@ def test_cli_wiring(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["-m", "x", "-g", "-1"],  # neither --socket nor --port
     ["-m", "x", "--socket", "s", "--port", "1", "-g", "-1"],
-    ["-m", "x", "--socket", "s", "--num_devices", "2", "-g", "-1"],
-    ["-m", "x", "--socket", "s", "--spatial_shard", "-g", "-1"],
+    ["-m", "x", "--socket", "s", "--num_devices", "two", "-g", "-1"],
+    ["-m", "x", "--fine_model", "y", "--socket", "s", "--spatial_shard",
+     "--num_devices", "2", "--partition_type", "SLAB", "-g", "-1"],
     ["-m", "x", "--fine_model", "y", "--socket", "s", "--spatial_shard", "-g", "-1"],
     ["-m", "x", "--fine_model", "y", "--socket", "s", "--checkpoint", "best", "-g", "-1"],
     ["-m", "x", "-m", "z", "--fine_model", "y", "--socket", "s", "-g", "-1"],
@@ -279,6 +280,32 @@ def test_cli_wiring(tmp_path):
 def test_cli_refuses(argv):
     with pytest.raises(SystemExit):
         serve_main(argv)
+
+
+@pytest.mark.parametrize("extra", [["--num_devices", "3"], ["--num_devices", "-1"],
+                                   ["--num_devices", "2", "--spatial_shard",
+                                    "--partition_type", "SLAB"]])
+def test_cli_passes_shard_options(extra, monkeypatch, tmp_path):
+    """``--num_devices`` and ``--spatial_shard`` reach each request's
+    segmentation() as the JAX server hands them on: the server's devices,
+    chosen once at start (on the CPU, one shard per device asked for; -1
+    counts the CPU once), and the same spatial_shard."""
+    import segmentation3d_tpu.cli.seg_serve as jax_serve
+    import segmentation3d_tpu_torch.cli.seg_serve as port_serve
+    calls, servers = {}, {}
+    for tag, mod in (("jax", jax_serve), ("port", port_serve)):
+        monkeypatch.setattr(mod, "segmentation", lambda tag=tag, **kw: calls.update({tag: kw}))
+        monkeypatch.setattr(mod, "serve_forever",
+                            lambda server, tag=tag, **kw: servers.update({tag: server}))
+    argv = ["-m", str(tmp_path), "--socket", str(tmp_path / "s.sock")] + extra
+    jax_serve.main(argv)
+    port_serve.main(argv + ["-g", "-1"])
+    for server in servers.values():
+        server.run_fn("in.nii.gz", "out", "seg.mha", False, False)
+    n = int(extra[1])
+    assert calls["port"]["device"] == [torch.device("cpu")] * (1 if n < 0 else n)
+    assert calls["jax"]["num_devices"] == n
+    assert calls["port"]["spatial_shard"] == calls["jax"]["spatial_shard"]
 
 
 def test_cli_needs_a_card_or_the_cpu(tmp_path):

@@ -83,7 +83,19 @@ NVIDIA GPU:
    times per validation forward and ``window_conv_i8`` never, the folded
    forward's val Dice is the float32 module's within a bar, ``chk_best``
    and the last checkpoint run through ``seg_infer --bf16``; crops/s, the
-   prefetch-wait share, peak memory and seconds per save point.
+   prefetch-wait share, peak memory and seconds per save point;
+17. train_ddp: two training ranks on the one card over gloo (this process
+   is rank 0, a helper process rank 1; the backend rule and each rank's
+   device printed): (a) one SGD step of the full-width V-Net, data 2, global
+   batch 8 x 96^3, and (b) spatial 2, global batch 4 x 96^3 (48 planes per
+   rank), each in float32 against the one-rank step at full size and in
+   float64 at 64^3 (loss, running statistics, every update; both ranks end
+   equal), with each rank's bf16 step ms beside the same ranks' steps
+   without collectives; (c) ``seg_train`` as two torchrun ranks on 16's
+   cases, 8 steps, two save points: one ``train_loss.csv`` and checkpoint
+   (keys equal to 16's), ``thin_conv3d`` launched 20 times per validation
+   forward on rank 0, each launch held against its plain version; each
+   rank's step ms, crops/s for the pair, peak memory per rank.
 
 Every path's kernel launches are counted from zero around its run and
 checked against its batches.
@@ -92,8 +104,13 @@ Each phase prints one JSON line; any failed check exits nonzero. The last
 lines are the kernel summary, and ``{"ok": true, "device": ...}``.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --train-only`` builds the kernels and runs 16 and
+17 alone, for work on the training path; it prints no summary.)
 """
+import datetime
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1834,6 +1851,7 @@ def phase_train(torch, tc, wi, workdir, gpu):
     with open(val_txt, "w") as f:
         f.write(f"1\n{val_img}\n{val_seg}\n")
     save_dir = os.path.join(d, "model")
+    ctx = dict(train=train_txt, val=val_txt, save_dir=save_dir, dir=d)
     # epoch = batch x 8 / 4 cases: 32 steps reach epoch 64, saves at 32, 64
     epochs = TRAIN_STEPS * BATCH // TRAIN_CASES
     cfg = os.path.join(d, "config.py")
@@ -1917,7 +1935,393 @@ def phase_train(torch, tc, wi, workdir, gpu):
     check(os.path.isfile(os.path.join(save_dir, "checkpoints", "chk_best", "params.pth")),
           "no chk_best")
     check(cli_refused, "--fold without --folds was not refused")
+    return launches[0], ctx
+
+
+#: train_ddp phase: the two-rank step against the one-rank step at full size,
+#: float32 (TF32 off). Loss and running statistics: the bars of
+#: tests/test_torch_port_train_step.py. Updates: the train_step phase's bars
+#: (per tensor, and L2 over all), since float32 rounding through the
+#: BatchNorm backwards moves a deep tensor's update by a few percent of its
+#: largest element between two orders of the same sums (on the CPU at 32^3:
+#: 4.8%, L2 5e-4), beyond that file's 1e-3, which holds for its small nets
+DDP_LOSS_RTOL = 1e-5
+DDP_STATS_TOL = 1e-5      # |running stat difference| / the tensor's largest value
+#: ... and in float64 at 64^3, where rounding leaves ~1e-13: the same function
+DDP_F64_TOL = 1e-8
+DDP_STEPS = 8             # the loop: 8 steps of 4 x 96^3 per rank, 2 save points
+THIN_TOL = 0.05           # the kernel phase's bar: of the plain output's largest value
+DDP_TIMEOUT = datetime.timedelta(seconds=300)  # a collective's longest wait
+
+RANK1_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+print(json.dumps(chip_smoke.rank1_main(*sys.argv[2:])))
+"""
+
+
+def step_gaps(torch, got, want, old, ft):
+    """Two steps' results (state dicts, float64 on the host) against each
+    other: the worst running-statistic gap over the tensor's largest value,
+    the worst update gap over the tensor's largest update (beyond 2 ulp of
+    the parameter, of type ``ft``) and its tensor, the update L2 gap."""
+    import numpy as np
+    stats = upd = num = den = 0.0
+    worst = None
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if "running" in k:
+            stats = max(stats, float((got[k] - v).abs().max() / v.abs().max()))
+        elif not (k.endswith(".bias") and "bn" not in k and "proj" not in k):
+            # conv biases that feed a BatchNorm get no gradient
+            d, e = v - old[k], got[k] - v
+            ulp = 2 * float(np.spacing(ft(v.abs().max())))
+            g = float((e.abs().max() - ulp) / d.abs().max())
+            num, den = num + float((e * e).sum()), den + float((d * d).sum())
+            if g > upd:
+                upd, worst = g, k
+    return dict(bn_buffer_gap=stats, update_gap=upd, update_gap_at=worst,
+                update_l2_gap=(num / den) ** 0.5)
+
+
+def ddp_net(torch, seed, dtype):
+    from segmentation3d_tpu_torch.models.vnet import SegmentationNet, init_like_flax_
+    net = SegmentationNet(1, 2, remat=True)
+    init_like_flax_(net, torch.Generator().manual_seed(seed))
+    return net.to(DEV, dtype)
+
+
+def ddp_batch(torch, batch, crop, dtype):
+    import numpy as np
+    rng = np.random.default_rng(batch * 1000 + crop)
+    x = rng.normal(size=(batch, crop, crop, crop, 1))
+    y = (rng.random((batch, crop, crop, crop)) < 0.3).astype(np.int32)
+    return torch.from_numpy(x).to(dtype), torch.from_numpy(y)
+
+
+def ddp_setup(torch, rank, data, spatial, batch, crop, dtype, group):
+    """The seeded full-width V-Net (with ``group``: under DDP over the
+    (data, spatial) mesh of the current group, with synced BatchNorm and
+    halo convs), its loss (Dice over the z slabs) and this rank's rows and
+    planes of a seeded global batch: ``(net, model, loss_fn, x, y)``."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+    from segmentation3d_tpu_torch.config import EasyDict
+    from segmentation3d_tpu_torch.losses import create_loss
+    from segmentation3d_tpu_torch.models.vnet import distribute_
+    from segmentation3d_tpu_torch.parallel.train_mesh import TrainMesh
+    net = ddp_net(torch, 7, dtype)
+    x, y = ddp_batch(torch, batch, crop, dtype)
+    mesh = TrainMesh(data, spatial, rank)
+    model, z_group = net, None
+    if group:
+        z_group = mesh.spatial_group()
+        distribute_(net, dist.group.WORLD, z_group)
+        model = DistributedDataParallel(net, device_ids=[0], broadcast_buffers=False)
+    rows, z = mesh.local_rows(batch), mesh.local_z(crop)
+    loss_fn = create_loss(EasyDict(name="Dice", obj_weight=None), 2, z_group=z_group)
+    return net, model, loss_fn, x[rows][:, z].to(DEV), y[rows][:, z].to(DEV)
+
+
+def ddp_step(torch, rank, data, spatial, batch, crop, dtype, group=True):
+    """One SGD step (TF32 off) of :func:`ddp_setup`'s net on its batch
+    (``group=False``: one rank, ``data = spatial = 1``). Returns the global
+    loss, the state dict after the step (float64, host), the step's seconds
+    and this rank's peak memory."""
+    from segmentation3d_tpu_torch.core.seg_train import train_step
+    from segmentation3d_tpu_torch.parallel.collectives import world_mean
+    net, model, loss_fn, x, y = ddp_setup(torch, rank, data, spatial, batch, crop,
+                                          dtype, group)
+    opt = torch.optim.SGD(net.parameters(), lr=0.1)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = float(world_mean(train_step(model, opt, loss_fn, x, y)))
+    seconds = time.perf_counter() - t
+    state = {k: v.detach().to("cpu", torch.float64) for k, v in net.state_dict().items()}
+    return loss, state, seconds, torch.cuda.max_memory_allocated()
+
+
+def ranks_spread(torch, state):
+    """The largest difference of any state element between the two ranks."""
+    import torch.distributed as dist
+    flat = torch.cat([v.flatten() for v in state.values()]).to(DEV)
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return float((hi - lo).max())
+
+
+def ddp_timing(torch, rank, data, spatial, batch, crop, reps=3):
+    """Median bf16 step milliseconds of this rank over ``reps`` steps after
+    one warm-up, with the collectives (DDP, synced BatchNorm, halo) and then
+    without (each rank alone on the same shapes), both ranks started
+    together by a barrier before each step."""
+    import numpy as np
+    import torch.distributed as dist
+    from segmentation3d_tpu_torch.core.seg_train import train_step
+    out = {}
+    for tag, group in (("with_collectives", True), ("without", False)):
+        net, model, loss_fn, x, y = ddp_setup(torch, rank, data, spatial, batch, crop,
+                                              torch.float32, group)
+        opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+        times = []
+        for i in range(reps + 1):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            train_step(model, opt, loss_fn, x, y, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t)
+        out[tag + "_ms"] = 1e3 * float(np.median(times))
+        del model, net, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def ddp_steps(torch, rank):
+    """Rank ``rank``'s part of (a) and (b), in the current group of two:
+    each scenario's checked steps (float64 at 64^3, float32 at 96^3) and
+    its bf16 timing. Returns, per scenario, what rank 0 checks."""
+    res = {}
+    for tag, (data, spatial, batch, batch64) in DDP_MESHES.items():
+        r = {}
+        for dt, crop, b in ((torch.float64, 64, batch64), (torch.float32, PATCH, batch)):
+            loss, state, sec, peak = ddp_step(torch, rank, data, spatial, b, crop, dt)
+            r[str(dt)[6:]] = dict(loss=loss, state=state, seconds=sec, peak=peak,
+                                  ranks_spread=ranks_spread(torch, state))
+        r["bf16_timing"] = ddp_timing(torch, rank, data, spatial, batch, PATCH)
+        res[tag] = r
+    return res
+
+
+#: (a) and (b): (data, spatial, global batch at 96^3, at 64^3 in float64)
+DDP_MESHES = {"a_data2": (2, 1, BATCH, 2), "b_spatial2": (1, 2, BATCH // 2, 1)}
+
+
+def torchrun_env(rank, port):
+    return dict(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def loop_result(torch, stats):
+    """A rank's numbers from ``train_ranks``'s stats: steady step ms (from
+    the first loss readback to the last, save points out)."""
+    (s0, t0, _), (s1, t1, _) = stats["flushes"][0], stats["flushes"][-1]
+    span = t1 - t0 - sum(stats["save_point_seconds"][:-1])
+    return dict(steps=stats["steps"], steady_steps=s1 - s0,
+                step_ms=1e3 * span / max(1, s1 - s0),
+                save_point_seconds=stats["save_point_seconds"],
+                peak_memory=torch.cuda.max_memory_allocated())
+
+
+def rank1_main(port_steps, config, port_loop):
+    """The helper process: rank 1 of (a) and (b) in a group with this
+    script's process, then rank 1 of ``seg_train``'s torchrun group for
+    (c). Prints what rank 0 checks beside its own."""
+    import torch
+    import torch.distributed as dist
+    from segmentation3d_tpu_torch.core.seg_train import train_ranks
+    from segmentation3d_tpu_torch.ops import thin_conv as tc
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port_steps}",
+                            rank=1, world_size=2, timeout=DDP_TIMEOUT)
+    torch.cuda.set_device(0)
+    steps = ddp_steps(torch, 1)
+    dist.destroy_process_group()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ.update(torchrun_env(1, port_loop))
+    stats = {}
+    tc.thin_conv3d.launches = 0
+    train_ranks(config, 0, stats)
+    for r in steps.values():  # rank 0 checks the states through ranks_spread
+        for dt in ("float64", "float32"):
+            del r[dt]["state"]
+    return dict(steps=steps, loop=loop_result(torch, stats),
+                launches=tc.thin_conv3d.launches)
+
+
+def watchdog(proc, err):
+    """End this process (exit 1) if ``proc`` fails while this one may be
+    waiting for it in a collective; set the returned event before ending
+    ``proc`` on purpose."""
+    import threading
+    stopping = threading.Event()
+
+    def watch():
+        if proc.wait() != 0 and not stopping.is_set():
+            err.seek(0)
+            print(f"chip_smoke: FAILED: rank 1 exited {proc.returncode}: "
+                  f"{err.read()[-3000:]}", file=sys.stderr, flush=True)
+            os._exit(1)
+    threading.Thread(target=watch, daemon=True).start()
+    return stopping
+
+
+def phase_train_ddp(torch, tc, wi, train_ctx, gpu):
+    """Two training ranks on the one card over gloo: (a) and (b), one step
+    each against one rank, then (c) ``seg_train`` as two torchrun ranks."""
+    import csv
+    import torch.distributed as dist
+    import segmentation3d_tpu_torch.models.fused_vnet as fused
+    from segmentation3d_tpu_torch.core.seg_train import train_ranks
+    from segmentation3d_tpu_torch.parallel import distributed
+    from segmentation3d_tpu_torch.utils import model_io
+    d = os.path.join(train_ctx["dir"], "ddp")
+    os.makedirs(d)
+    save_dir = os.path.join(d, "model")
+    epochs = DDP_STEPS * BATCH // TRAIN_CASES
+    cfg = os.path.join(d, "config.py")
+    with open(cfg, "w") as f:
+        f.write(TRAIN_CONFIG.format(train=train_ctx["train"], save_dir=save_dir,
+                                    val=train_ctx["val"], epochs=epochs,
+                                    save_epochs=epochs // 2, crop=PATCH, batch=BATCH)
+                + "__C.tpu.log_every = 1\n")
+    rule = distributed.training_rule(2, torch.cuda.device_count(), 0)
+    rule = dict(backend=rule[0], devices=[str(x) for x in rule[1]])
+
+    # the one-rank steps, before any group
+    one = {tag: {str(dt)[6:]: ddp_step(torch, 0, 1, 1, b, crop, dt, group=False)
+                 for dt, crop, b in ((torch.float64, 64, batch64),
+                                     (torch.float32, PATCH, batch))}
+           for tag, (_, _, batch, batch64) in DDP_MESHES.items()}
+    port_steps, port_loop = free_port(), free_port()
+    logs = [open(os.path.join(d, f"rank1.{k}"), "w+") for k in ("out", "err")]
+    helper = subprocess.Popen(
+        [sys.executable, "-c", RANK1_SCRIPT, HERE, str(port_steps), cfg, str(port_loop)],
+        stdout=logs[0], stderr=logs[1], text=True)
+    stopping = watchdog(helper, logs[1])
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port_steps}",
+                                rank=0, world_size=2, timeout=DDP_TIMEOUT)
+        mine = ddp_steps(torch, 0)
+        backend = dist.get_backend()
+        dist.destroy_process_group()
+
+        # (c): seg_train's own start under torchrun's environment, this
+        # process as rank 0; every thin_conv3d launch also runs its plain
+        # version (not counted) for the comparison
+        errs = []
+        real = fused.thin_conv3d
+
+        def held(x, w, b=None, **kw):
+            out = real(x, w, b, **kw)
+            ref = tc.thin_conv3d_reference(x, w, b, **kw)
+            errs.append((float((out.float() - ref.float()).abs().max()),
+                         float(ref.float().abs().max())))
+            return out
+        saved_env = {k: os.environ.get(k) for k in torchrun_env(0, 0)}
+        os.environ.update(torchrun_env(0, port_loop))
+        fused.thin_conv3d = held
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tc.thin_conv3d.launches = 0
+        wi.window_conv_i8.launches = 0
+        t = time.perf_counter()
+        try:
+            train_ranks(cfg, 0, stats)
+        finally:
+            fused.thin_conv3d = real
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        wall = time.perf_counter() - t
+        launches = (tc.thin_conv3d.launches, wi.window_conv_i8.launches)
+        loop0 = loop_result(torch, stats)
+        helper.wait(timeout=600)
+    finally:
+        stopping.set()
+        helper.kill()
+        helper.wait()
+        so, se = (f.seek(0) or f.read() for f in logs)
+        for f in logs:
+            f.close()
+    check(helper.returncode == 0, f"rank 1 exited {helper.returncode}: {se.strip()[-3000:]}")
+    other = json.loads(so.strip().splitlines()[-1])
+
+    import numpy as np
+    old = {k: v.to("cpu", torch.float64)
+           for k, v in ddp_net(torch, 7, torch.float32).state_dict().items()}
+    scen = {}
+    for tag in DDP_MESHES:
+        r = {}
+        for dt in ("float64", "float32"):
+            loss1, want, _, _ = one[tag][dt]
+            m = mine[tag][dt]
+            r[dt] = dict(loss_one_rank=loss1, loss_two_ranks=m["loss"],
+                         loss_rel_gap=abs(m["loss"] - loss1) / abs(loss1),
+                         ranks_spread=m["ranks_spread"],
+                         **step_gaps(torch, m["state"], want, old, getattr(np, dt)),
+                         seconds=dict(one_rank=one[tag][dt][2], rank0=m["seconds"],
+                                      rank1=other["steps"][tag][dt]["seconds"]),
+                         peak_memory=dict(one_rank=one[tag][dt][3], rank0=m["peak"],
+                                          rank1=other["steps"][tag][dt]["peak"]))
+        t0, t1 = mine[tag]["bf16_timing"], other["steps"][tag]["bf16_timing"]
+        r["bf16_step_ms"] = dict(rank0=t0, rank1=t1, collectives_share=[
+            1 - t["without_ms"] / t["with_collectives_ms"] for t in (t0, t1)])
+        scen[tag] = r
+    with open(os.path.join(save_dir, "train_loss.csv")) as f:
+        losses = [float(row["loss"]) for row in csv.DictReader(f)]
+    with open(os.path.join(save_dir, "val_dice.csv")) as f:
+        n_val = len(list(csv.DictReader(f)))
+    chk = model_io.latest_checkpoint(save_dir)
+    keys = list(model_io.load_checkpoint_payload(chk)["state_dict"])
+    keys_one = list(model_io.load_checkpoint_payload(
+        model_io.latest_checkpoint(train_ctx["save_dir"]))["state_dict"])
+    loop1 = other["loop"]
+    pair_crops_s = BATCH / (max(loop0["step_ms"], loop1["step_ms"]) / 1e3)
+    emit("train_ddp", rule=rule, backend=backend, world=2, scenarios=scen,
+         bars=dict(loss_rtol=DDP_LOSS_RTOL, bn_buffer=DDP_STATS_TOL,
+                   update=STEP_UPDATE_TOL, update_l2=STEP_UPDATE_L2, float64=DDP_F64_TOL),
+         loop=dict(rank0=loop0, rank1=loop1, crops_per_s_pair=pair_crops_s,
+                   wall_seconds=wall, losses=losses, validation_forwards=n_val,
+                   launches=dict(thin_conv3d=launches[0], window_conv_i8=launches[1],
+                                 rank1_thin_conv3d=other["launches"]),
+                   thin_conv3d_max_err=max(e for e, _ in errs) if errs else None,
+                   thin_conv3d_max_err_over_largest_output=max(
+                       e / m for e, m in errs) if errs else None,
+                   thin_conv3d_tol_over_largest_output=THIN_TOL,
+                   checkpoint=os.path.basename(chk)),
+         gpu=gpu)
+    check(rule == dict(backend="gloo", devices=["cuda:0", "cuda:0"]) and backend == "gloo",
+          f"two ranks on one card: rule {rule}, backend {backend}")
+    for tag, r in scen.items():
+        f64, f32 = r["float64"], r["float32"]
+        for dt in ("float64", "float32"):
+            check(r[dt]["ranks_spread"] == 0.0, f"{tag} {dt}: ranks differ {r[dt]['ranks_spread']}")
+        check(max(f64["loss_rel_gap"], f64["bn_buffer_gap"], f64["update_gap"])
+              <= DDP_F64_TOL, f"{tag} float64 two ranks vs one: {f64}")
+        check(f32["loss_rel_gap"] <= DDP_LOSS_RTOL, f"{tag} float32 loss gap {f32}")
+        check(f32["bn_buffer_gap"] <= DDP_STATS_TOL, f"{tag} float32 BN buffer gap {f32}")
+        check(f32["update_gap"] <= STEP_UPDATE_TOL and f32["update_l2_gap"] <= STEP_UPDATE_L2,
+              f"{tag} float32 update gap {f32}")
+    check(len(losses) == DDP_STEPS and all(map(math.isfinite, losses)),
+          f"train_loss.csv rows {losses}")
+    check(keys == keys_one, "the two-rank checkpoint's keys differ from the one-rank run's")
+    check(n_val == 2 and launches == (20 * n_val, 0) and other["launches"] == 0,
+          f"validation rows {n_val}, launches rank 0 {launches}, rank 1 {other['launches']}")
+    check(len(errs) == launches[0] and all(e <= THIN_TOL * m for e, m in errs),
+          f"thin_conv3d against its plain version in the loop: {errs}")
     return launches[0]
+
+
+def train_only(torch):
+    """Build the kernels, then phases train and train_ddp alone."""
+    from segmentation3d_tpu_torch.ops import cuda_build
+    from segmentation3d_tpu_torch.ops import thin_conv as tc
+    from segmentation3d_tpu_torch.ops import window_i8 as wi
+    gpu = gpu_line()
+    print(gpu)
+    cuda_build.build_all()
+    with tempfile.TemporaryDirectory() as workdir:
+        _, train_ctx = phase_train(torch, tc, wi, workdir, gpu)
+        phase_train_ddp(torch, tc, wi, train_ctx, gpu)
+    return 0
 
 
 def kernel_entry(name, source, replaces, launches, rows, peak_ops, ops_key):
@@ -1949,6 +2353,8 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if "--train-only" in sys.argv[1:]:
+        return train_only(torch)
     from segmentation3d_tpu_torch import native
     from segmentation3d_tpu_torch.ops import cuda_build
     from segmentation3d_tpu_torch.ops import thin_conv as tc
@@ -1986,11 +2392,13 @@ def main():
         launches_convert = phase_convert(torch, tc, ctx, gpu)
         launches_serve, launches_serve_i8 = phase_serve(torch, tc, wi, ctx, gpu)
         phase_train_step(torch, gpu)
-        launches_train = phase_train(torch, tc, wi, workdir, gpu)
+        launches_train, train_ctx = phase_train(torch, tc, wi, workdir, gpu)
+        launches_ddp = phase_train_ddp(torch, tc, wi, train_ctx, gpu)
 
     thin_paths = {"seg_infer --bf16": ctx["launches"], **launches_formats,
                   **launches_shard, **launches_convert, **launches_serve,
-                  "seg_train (validation)": launches_train}
+                  "seg_train (validation)": launches_train,
+                  "seg_train, 2 ranks (rank 0's validation)": launches_ddp}
     thin = kernel_entry("thin_conv3d", "segmentation3d_tpu_torch/csrc/thin_conv3d.cu",
                         "segmentation3d_tpu/ops/pallas_conv.py:174",
                         sum(thin_paths.values()), sites, PEAK_BF16_FLOPS, "flops")

@@ -3,8 +3,14 @@
     python -m segmentation3d_tpu_torch.cli.seg_train -i config.py
         [--folds K [--fold k]] [-g 0]
 
-``-g N`` trains on ``cuda:N``; ``-g -1`` asks for the CPU. Without a CUDA
-device and without ``-g -1`` it raises.
+``-g N`` names the first device: ``cuda:N`` (``-g -1`` asks for the CPU).
+Without a CUDA device and without ``-g -1`` it raises. A config whose
+mesh asks for several GPUs (``cfg.tpu.mesh.data``, default -1: every
+device) trains on every GPU from ``cuda:N`` on, one spawned rank each; on
+one GPU or the CPU one process trains. Under torchrun
+(``torchrun --nproc_per_node G -m segmentation3d_tpu_torch.cli.seg_train
+-i config.py``) each process joins torchrun's group as one rank
+(``core/seg_train.py:train_ranks``).
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ def build_parser():
     parser.add_argument("--fold", type=int, default=None, metavar="k",
                         help="with --folds: train only fold k")
     parser.add_argument("-g", "--gpu_id", type=int, default=0,
-                        help="CUDA device index; -1 runs on the CPU")
+                        help="the first CUDA device index; -1 runs on the CPU")
     return parser
 
 
@@ -38,8 +44,8 @@ def main(argv=None):
         from segmentation3d_tpu_torch.core.folds import train_folds
         return train_folds(args.input, args.folds, fold=args.fold,
                            gpu_id=args.gpu_id)
-    from segmentation3d_tpu_torch.core.seg_train import train
-    return train(args.input, gpu_id=args.gpu_id)
+    from segmentation3d_tpu_torch.core.seg_train import train_ranks
+    return train_ranks(args.input, gpu_id=args.gpu_id)
 
 
 if __name__ == "__main__":

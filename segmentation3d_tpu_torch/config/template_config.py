@@ -2,10 +2,10 @@
 
 The JAX package's template (``segmentation3d_tpu/config/template_config.py``)
 field for field: one config file trains with either package. Fields marked
-[TPU] are the JAX package's additions; in the port ``tpu.dtype`` and
-``tpu.remat`` act as there, ``tpu.mesh``, ``tpu.steps_per_dispatch`` and
-``tpu.conv_backend`` are checked and then run as single steps on one GPU
-(``core/seg_train.py``).
+[TPU] are the JAX package's additions; in the port ``tpu.dtype``,
+``tpu.remat`` and ``tpu.mesh`` act as there (the mesh's devices are GPUs,
+one rank each), ``tpu.steps_per_dispatch`` and ``tpu.conv_backend`` are
+checked and then run as single steps (``core/seg_train.py``).
 """
 from easydict import EasyDict as edict
 from segmentation3d.utils.normalizer import FixedNormalizer, AdaptiveNormalizer  # noqa: F401
@@ -18,7 +18,8 @@ __C.general = edict()
 __C.general.imseg_list = "/path/to/train.txt"   # or .csv
 __C.general.save_dir = "/path/to/model_dir"
 __C.general.resume_epoch = -1                   # -1 = fresh run
-__C.general.num_gpus = 1                        # only 1 is ported
+__C.general.num_gpus = 1                        # data-parallel GPUs when
+                                                # tpu.mesh.data is unset or 0
 __C.general.seed = 0
 
 # ---- dataset ---------------------------------------------------------------
@@ -78,8 +79,14 @@ __C.tpu = edict()
 __C.tpu.dtype = "float32"                       # float32 | bfloat16
 __C.tpu.remat = True                            # checkpoint blocks (memory)
 __C.tpu.mesh = edict()
-__C.tpu.mesh.data = -1                          # -1 = all devices (the
-                                                # port: one GPU)
+__C.tpu.mesh.data = -1                          # data-parallel devices,
+                                                # -1 = all devices (every
+                                                # GPU from -g on; the CPU
+                                                # is one); wins over
+                                                # general.num_gpus
+# __C.tpu.mesh.spatial = 1                      # [TPU] S>1 also shards each
+#                                               # crop's z over S devices
+#                                               # (crop z % (S * 16) == 0)
 __C.tpu.steps_per_dispatch = 1                  # K>1 fuses K train steps
                                                 # into one program on a
                                                 # TPU; the port checks it

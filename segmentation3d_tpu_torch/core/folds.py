@@ -9,6 +9,8 @@ lists in the txt format + a wrapper config that runs the user's config and
 overrides ``imseg_list``/``save_dir``/``val_list``), so a fold run is a
 normal ``seg_train`` run; the wrapper runs through the port's
 :func:`..utils.file_io.load_config`, whose aliases the user config sees.
+Each file is written whole and then renamed into place, so the ranks of a
+torchrun group, which all prepare the same fold, never read a half file.
 """
 from __future__ import annotations
 
@@ -28,14 +30,20 @@ def split_folds(n_cases: int, k: int, seed: int = 0):
     return [sorted(int(i) for i in idx[f::k]) for f in range(k)]
 
 
+def _write_whole(path, text):
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+    return path
+
+
 def _write_case_list(path, ims, segs, indices):
     lines = [str(len(indices))]
     for i in indices:
         lines.extend(ims[i])
         lines.append(segs[i])
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
-    return path
+    return _write_whole(path, "\n".join(lines) + "\n")
 
 
 def prepare_fold(config_file: str, k_folds: int, fold: int) -> str:
@@ -60,9 +68,9 @@ def prepare_fold(config_file: str, k_folds: int, fold: int) -> str:
     val_txt = _write_case_list(os.path.join(setup, "val.txt"),
                                ims, segs, val_idx)
     wrapper = os.path.join(setup, "config.py")
-    with open(wrapper, "w") as f:
-        f.write(
-            f'''"""Auto-generated fold-{fold}/{k_folds} wrapper (seg_train --folds).
+    _write_whole(
+        wrapper,
+        f'''"""Auto-generated fold-{fold}/{k_folds} wrapper (seg_train --folds).
 Runs the user config and overrides the fold-specific fields."""
 import runpy as _runpy
 cfg = _runpy.run_path(r"{os.path.abspath(config_file)}")["cfg"]
@@ -74,10 +82,11 @@ cfg.train.val_list = r"{val_txt}"
 
 
 def train_folds(config_file: str, k_folds: int, fold: int | None = None,
-                gpu_id: int = 0, device=None):
-    """Train one fold (``fold`` given) or all K in turn."""
-    from segmentation3d_tpu_torch.core.seg_train import train
+                gpu_id: int = 0):
+    """Train one fold (``fold`` given) or all K in turn, each as
+    ``seg_train`` trains a config (:func:`..core.seg_train.train_ranks`)."""
+    from segmentation3d_tpu_torch.core.seg_train import train_ranks
     targets = [fold] if fold is not None else list(range(k_folds))
     for k in targets:
         print(f"=== fold {k}/{k_folds} ===")
-        train(prepare_fold(config_file, k_folds, k), gpu_id=gpu_id, device=device)
+        train_ranks(prepare_fold(config_file, k_folds, k), gpu_id=gpu_id)

@@ -1,4 +1,4 @@
-"""Training loop on one GPU.
+"""Training loop, on one GPU or over several ranks.
 
 The port of ``segmentation3d_tpu/core/seg_train.py:train(config_file)``, with
 its observable behaviour: the save-dir lifecycle (a fresh run wipes the
@@ -25,11 +25,23 @@ steps and at save points, never once per step.
 ``cfg.tpu.conv_backend``, ``cfg.tpu.steps_per_dispatch`` and
 ``cfg.tpu.log_every`` choose how a TPU runs the same function: their values
 and clash rules are checked as the JAX package checks them, then the same
-sequence of single steps runs. More than one device (``cfg.tpu.mesh.data``,
-``cfg.tpu.mesh.spatial``, ``cfg.general.num_gpus``) is refused: multi-GPU
-training is not ported yet. As in the JAX package, a resumed run restores
+sequence of single steps runs. As in the JAX package, a resumed run restores
 the weights, the BatchNorm statistics and the optimizer (its step count
 too) and starts the sampler and crop streams again from the seed.
+
+Several GPUs (``cfg.tpu.mesh.data``, ``cfg.tpu.mesh.spatial``,
+``cfg.general.num_gpus``; -1: every device) train as one process per GPU,
+a rank of a ``torch.distributed`` group (:func:`train_ranks`: torchrun's
+group, or one rank spawned per GPU). The ranks form the JAX package's
+``(data, spatial)`` mesh (``parallel/train_mesh.py``): each crops its rows
+of every batch from the shared index stream, and its z planes; the net is
+wrapped in ``DistributedDataParallel``; BatchNorm normalizes over the
+whole (micro)batch and every z slab, each 3^3 conv exchanges a halo plane
+with its z neighbours, Dice sums over the z slabs
+(``parallel/collectives.py``), so the step is the JAX package's mesh step:
+the global batch's mean gradient. Rank 0 alone writes the save dir (from
+the unwrapped net, so the checkpoint is the one-GPU one) and validates;
+the others wait at a barrier. With one rank no collective is issued.
 """
 from __future__ import annotations
 
@@ -43,12 +55,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from segmentation3d_tpu_torch.config import load_config
 from segmentation3d_tpu_torch.dataloader import EpochConcateSampler, SegmentationDataset
 from segmentation3d_tpu_torch.losses import create_loss
 from segmentation3d_tpu_torch.models import get_network_module
-from segmentation3d_tpu_torch.models.vnet import init_like_flax_, vnet_focal_init
+from segmentation3d_tpu_torch.models.vnet import (distribute_, init_like_flax_,
+                                                  vnet_focal_init)
+from segmentation3d_tpu_torch.parallel import distributed
+from segmentation3d_tpu_torch.parallel.collectives import world_mean
+from segmentation3d_tpu_torch.parallel.train_mesh import (TrainMesh, mesh_shape,
+                                                          requested_devices)
 from segmentation3d_tpu_torch.utils import model_io
 from segmentation3d_tpu_torch.utils.device import no_tf32, resolve_device
 from segmentation3d_tpu_torch.utils.file_io import setup_logger
@@ -80,12 +98,18 @@ class _BatchPrefetcher:
     tensors are marked as used by that stream (``record_stream``), so the
     allocator does not hand their memory to the next batch early. A failing
     batch raises in the train loop (``RuntimeError``), never hangs it.
-    ``wait_seconds`` sums the time the consumer waited for a batch."""
+    ``wait_seconds`` sums the time the consumer waited for a batch.
 
-    def __init__(self, dataset, index_iter, batchsize, device, depth=2):
+    Over several ranks every rank draws the same global index stream and
+    crops only its own positions of each batch (``rows``) and keeps its own
+    planes of each crop (``z``); frames and names are those of its rows."""
+
+    def __init__(self, dataset, index_iter, batchsize, device, depth=2,
+                 rows=None, z=None):
         self.dataset = dataset
         self.index_iter = index_iter
         self.batchsize = batchsize
+        self.rows, self.z = rows, z
         self.device = torch.device(device)
         self.wait_seconds = 0.0
         self._stop = threading.Event()
@@ -103,8 +127,13 @@ class _BatchPrefetcher:
                 except StopIteration:
                     self.q.put(None)
                     return
+                if self.rows is not None:
+                    idxs = [idxs[i] for i in self.rows]
                 try:
                     images, segs, frames, names = self.dataset.batch(idxs)
+                    if self.z is not None:
+                        images = images[:, self.z].contiguous()
+                        segs = segs[:, self.z].contiguous()
                     ready = stream.record_event() if cuda else None
                 except Exception as e:  # surfaced in the train loop
                     self.q.put(e)
@@ -218,7 +247,9 @@ def train_step(net, optimizer, loss_fn, images, segs, *, dtype=torch.float32,
     rows, each normalized by its own BatchNorm statistics (the running ones
     move once per microbatch), the mean of their gradients, one update at
     ``lr`` (when given). Returns the mean loss as a device scalar: nothing
-    is read back."""
+    is read back. ``net`` may be a ``DistributedDataParallel``: its
+    gradients are then averaged over the ranks once, after the last
+    microbatch (the others run under ``no_sync``)."""
     b = images.shape[0]
     if b % accum:
         raise ValueError(f"batch {b} must divide by grad_accum_steps {accum}")
@@ -230,11 +261,14 @@ def train_step(net, optimizer, loss_fn, images, segs, *, dtype=torch.float32,
     with no_tf32():
         for i in range(accum):
             x, y = images[i * mb:(i + 1) * mb], segs[i * mb:(i + 1) * mb]
-            with torch.autocast(dev_type, dtype=torch.bfloat16,
-                                enabled=dtype == torch.bfloat16):
-                probs = net(x)
-            loss = loss_fn(probs.to(torch.promote_types(probs.dtype, torch.float32)), y)
-            (loss / accum).backward()
+            defer = i + 1 < accum and hasattr(net, "no_sync")
+            with net.no_sync() if defer else contextlib.nullcontext():
+                with torch.autocast(dev_type, dtype=torch.bfloat16,
+                                    enabled=dtype == torch.bfloat16):
+                    probs = net(x)
+                loss = loss_fn(probs.to(torch.promote_types(probs.dtype,
+                                                            torch.float32)), y)
+                (loss / accum).backward()
             total = loss.detach() if total is None else total + loss.detach()
         if lr is not None:
             for group in optimizer.param_groups:
@@ -243,9 +277,11 @@ def train_step(net, optimizer, loss_fn, images, segs, *, dtype=torch.float32,
     return total / accum
 
 
-def _check_execution_knobs(cfg, crop_size, grad_accum, batchsize):
-    """The JAX package's ``cfg.tpu`` / multi-device rules: returns
-    ``(conv_backend, steps_per_dispatch, log_every)``."""
+def _check_execution_knobs(cfg, crop_size, grad_accum, batchsize, max_stride,
+                           world=1, rank=0, hosts=1):
+    """The JAX package's ``cfg.tpu`` / mesh rules, in its order, for a group
+    of ``world`` ranks (one device each) on ``hosts`` nodes: returns
+    ``(conv_backend, steps_per_dispatch, log_every, mesh)``."""
     tpu = cfg.get("tpu", {})
     conv_backend = str(tpu.get("conv_backend", "direct"))
     if conv_backend not in ("direct", "window", "packed_domain"):
@@ -263,18 +299,15 @@ def _check_execution_knobs(cfg, crop_size, grad_accum, batchsize):
                 f"conv_backend 'packed_domain' requires crop width "
                 f"(crop_size x = {int(crop_size[0])}) % {p0} == 0 (the "
                 f"in_block packing); use 'window' otherwise")
-    mesh_cfg = tpu.get("mesh", {})
-    for key, value in (("cfg.tpu.mesh.data", mesh_cfg.get("data", -1)),
-                       ("cfg.tpu.mesh.spatial", mesh_cfg.get("spatial", 1)),
-                       ("cfg.general.num_gpus", cfg.general.get("num_gpus", 1))):
-        if int(value or 1) > 1:
-            raise NotImplementedError(
-                f"{key} = {value} needs several GPUs: multi-GPU training "
-                "(DDP) is not ported to the PyTorch/CUDA package yet; set "
-                "it to 1 (or -1)")
-    if grad_accum > 1 and batchsize % grad_accum != 0:
-        raise ValueError(f"batchsize {batchsize} must divide by "
-                         f"grad_accum_steps {grad_accum}")
+    mesh = TrainMesh.from_config(cfg, world, rank)
+    mesh.check(batchsize=batchsize, crop_z=int(crop_size[2]),
+               max_stride=max_stride, grad_accum=grad_accum,
+               conv_backend=conv_backend, hosts=hosts)
+    if mesh.size != world:
+        raise ValueError(
+            f"the config's mesh ({mesh.data} x {mesh.spatial}) uses "
+            f"{mesh.size} of the group's {world} ranks; start {mesh.size} "
+            "ranks, or set cfg.tpu.mesh.data to -1")
     steps_per_dispatch = max(1, int(tpu.get("steps_per_dispatch", 1)))
     if cfg.debug.get("save_inputs", False):
         steps_per_dispatch = 1  # as in the JAX package: forced before the clash check
@@ -282,7 +315,7 @@ def _check_execution_knobs(cfg, crop_size, grad_accum, batchsize):
         raise ValueError("cfg.tpu.steps_per_dispatch > 1 and "
                          "cfg.train.grad_accum_steps > 1 cannot be combined")
     log_every = max(1, int(tpu.get("log_every", 8)))
-    return conv_backend, steps_per_dispatch, log_every
+    return conv_backend, steps_per_dispatch, log_every, mesh
 
 
 def _save_inputs(save_dir, batch_idx, images, segs, frames, names):
@@ -300,7 +333,11 @@ def _save_inputs(save_dir, batch_idx, images, segs, frames, names):
 def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = None):
     """Train the config's net on ``cuda:<gpu_id>`` (``device``/``gpu_id=-1``:
     the CPU); raises when no CUDA device is available and the CPU was not
-    asked for. Returns the save dir. ``stats``: a dict to fill with the
+    asked for. In an initialized ``torch.distributed`` group this process
+    is one rank of the config's mesh, which must use every rank of the
+    group (:func:`train_ranks` starts the group); otherwise the mesh is
+    one device, as ``make_mesh`` clamps a request for more. Returns the
+    save dir. ``stats``: a dict to fill with this rank's
     loop's timings: ``steps``, ``loop_seconds`` (the step loop, its save
     points included, the final one not), ``prefetch_wait_seconds`` (of the
     loop waiting for a batch), ``flushes`` (``(steps, perf_counter,
@@ -310,12 +347,21 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
     cfg = load_config(config_file)
     dev = resolve_device(device, gpu_id)
     stats = {} if stats is None else stats
+    world, rank = distributed.process_count(), distributed.process_index()
+    primary = rank == 0
 
     save_dir = cfg.general.save_dir
     resume_epoch = int(cfg.general.resume_epoch)
     resume = resume_epoch >= 0
-    _prepare_save_dir(save_dir, resume)
-    logger = setup_logger(os.path.join(save_dir, "train_log.txt"))
+    if primary:  # one rank owns the save dir and every file in it
+        _prepare_save_dir(save_dir, resume)
+    distributed.barrier("save_dir_ready")
+    logger = setup_logger(os.path.join(save_dir, "train_log.txt"), to_file=primary)
+    if world > 1:
+        devices = [None] * world
+        dist.all_gather_object(devices, str(dev))
+        logger.info(f"training group: backend {dist.get_backend()}, world "
+                    f"{world}, devices by rank {devices}")
 
     seed = int(cfg.general.seed)
     np.random.seed(seed)
@@ -353,8 +399,10 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
     dtype = torch.bfloat16 if cfg.get("tpu", {}).get("dtype", "float32") \
         == "bfloat16" else torch.float32
     grad_accum = max(1, int(cfg.train.get("grad_accum_steps", 1)))
-    _, steps_per_dispatch, log_every = _check_execution_knobs(
-        cfg, crop_size, grad_accum, batchsize)
+    # JAX's processes are hosts: the nodes of torchrun's group
+    hosts = max(1, world // int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    _, steps_per_dispatch, log_every, mesh = _check_execution_knobs(
+        cfg, crop_size, grad_accum, batchsize, max_stride, world, rank, hosts)
 
     # optional architecture hyper-params (recorded in checkpoints so
     # inference rebuilds the same net)
@@ -384,13 +432,22 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
         start_batch_idx = int(payload.get("batch_idx", 0)) + 1
         logger.info(f"resumed from {chk} (epoch {resume_epoch})")
 
-    loss_fn = create_loss(cfg.loss, int(cfg.dataset.num_classes))
+    model, z_group = net, None
+    if world > 1:
+        from torch.nn.parallel import DistributedDataParallel
+        z_group = mesh.spatial_group()
+        distribute_(net, dist.group.WORLD, z_group)
+        # the synced BatchNorm statistics are equal on every rank already
+        model = DistributedDataParallel(
+            net, device_ids=[dev.index] if dev.type == "cuda" else None,
+            broadcast_buffers=False)
+    loss_fn = create_loss(cfg.loss, int(cfg.dataset.num_classes), z_group=z_group)
     if steps_per_dispatch > 1:
         logger.info(f"cfg.tpu.steps_per_dispatch = {steps_per_dispatch}: "
                     "runs as single steps on the GPU")
 
     loss_csv = os.path.join(save_dir, "train_loss.csv")
-    if not os.path.isfile(loss_csv):
+    if primary and not os.path.isfile(loss_csv):
         with open(loss_csv, "w") as f:
             f.write("epoch,batch,loss\n")
     num_classes = int(cfg.dataset.num_classes)
@@ -429,8 +486,10 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
 
     def save_point(epoch_idx, batch_idx):
         t = time.perf_counter()
-        save(epoch_idx, batch_idx)
-        validate(epoch_idx, batch_idx)
+        if primary:
+            save(epoch_idx, batch_idx)
+            validate(epoch_idx, batch_idx)
+        distributed.barrier(f"chk_{epoch_idx}")
         stats["save_point_seconds"].append(time.perf_counter() - t)
 
     def validate(epoch_idx, batch_idx):
@@ -475,7 +534,9 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
     batch_idx = start_batch_idx
     total_batches = (dataset_len * epochs) // batchsize
     logger.info(f"training: {dataset_len} cases, {epochs} epochs, batch {batchsize}, "
-                f"device {dev}, net {cfg.net.name}, loss {cfg.loss.name}")
+                f"{mesh.size} device(s) (data {mesh.data} x spatial "
+                f"{mesh.spatial}), rank {rank} on {dev}, net {cfg.net.name}, "
+                f"loss {cfg.loss.name}")
 
     # loss values stay on the device until a flush: (epoch, batch, loss, s)
     pending = []
@@ -484,9 +545,14 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
     def flush_logs():
         if not pending:
             return
-        values = torch.stack([p[2] for p in pending]).cpu().tolist()
+        # every rank reads the losses (the global batch's: the mean over the
+        # ranks), which keeps the ranks in step; rank 0 writes them
+        values = world_mean(torch.stack([p[2] for p in pending])).cpu().tolist()
         stats["flushes"].append((steps, time.perf_counter(),
                                  prefetcher.wait_seconds))
+        if not primary:
+            pending.clear()
+            return
         with open(loss_csv, "a") as f:
             for (ep, bi, _, dt), lv in zip(pending, values):
                 logger.info(f"epoch: {ep}, batch: {bi}, "
@@ -497,7 +563,7 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
     debug_ctx = contextlib.ExitStack()
     if cfg.debug.get("debug_nans", False):
         debug_ctx.enter_context(torch.autograd.detect_anomaly())
-    profile_dir = cfg.debug.get("profile_dir", None)
+    profile_dir = cfg.debug.get("profile_dir", None) if primary else None
     profiler = None
     if profile_dir:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -505,8 +571,11 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = debug_ctx.enter_context(torch.profiler.profile(activities=activities))
 
-    prefetcher = _BatchPrefetcher(dataset, iter(sampler), batchsize, dev,
-                                  depth=max(1, int(cfg.train.get("num_threads", 1))))
+    prefetcher = _BatchPrefetcher(
+        dataset, iter(sampler), batchsize, dev,
+        depth=max(1, int(cfg.train.get("num_threads", 1))),
+        rows=mesh.local_rows(batchsize, grad_accum) if mesh.data > 1 else None,
+        z=mesh.local_z(int(crop_size[2])) if mesh.spatial > 1 else None)
     steps, t_loop = 0, time.perf_counter()
     with debug_ctx:
         try:
@@ -516,7 +585,7 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
                     images, segs, frames, names = next(prefetcher)
                 except StopIteration:
                     break
-                loss = train_step(net, optimizer, loss_fn, images, segs,
+                loss = train_step(model, optimizer, loss_fn, images, segs,
                                   dtype=dtype, accum=grad_accum,
                                   lr=schedule(opt_count))
                 opt_count += 1
@@ -527,7 +596,8 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
                 pending.append((epoch_idx, batch_idx, loss, dt))
                 if len(pending) >= log_every:
                     flush_logs()
-                if cfg.debug.get("save_inputs", False):
+                if cfg.debug.get("save_inputs", False) and world == 1:
+                    # a single-process feature, as in the JAX package
                     _save_inputs(save_dir, batch_idx, images, segs, frames, names)
                 if epoch_idx != prev_epoch and epoch_idx % save_epochs == 0 \
                         and epoch_idx != last_saved_epoch:
@@ -549,8 +619,62 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
     if profiler is not None:
         os.makedirs(profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-    from segmentation3d_tpu_torch.utils.plotting import plot_loss_curve, plot_val_curve
-    plot_loss_curve(loss_csv)
-    plot_val_curve(val_csv)
+    if primary:
+        from segmentation3d_tpu_torch.utils.plotting import (plot_loss_curve,
+                                                             plot_val_curve)
+        plot_loss_curve(loss_csv)
+        plot_val_curve(val_csv)
     logger.info("training finished")
     return save_dir
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_count(config_file: str, gpu_id: int = 0) -> int:
+    """How many ranks one ``seg_train`` process starts on this node: the
+    config's mesh over the GPUs from ``cuda:<gpu_id>`` on, clamped as
+    ``make_mesh`` clamps (JAX's errors for a mesh that does not fit); 1 on
+    the CPU, which counts as one device, or without a CUDA device (the
+    trainer then raises)."""
+    if gpu_id < 0 or not torch.cuda.is_available():
+        return 1
+    devices, spatial = requested_devices(load_config(config_file))
+    data, spatial = mesh_shape(devices, max(1, torch.cuda.device_count() - gpu_id),
+                               spatial)
+    return data * spatial
+
+
+def _spawned_rank(index, config_file, gpu_id, world, port):
+    os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(world),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    train_ranks(config_file, gpu_id)
+
+
+def train_ranks(config_file: str, gpu_id: int = 0, stats: dict | None = None):
+    """``seg_train``'s start. Under torchrun's environment (``WORLD_SIZE`` >
+    1) this process joins its training group (the backend rule of
+    :func:`..parallel.distributed.join_training`; ``gpu_id``: the first
+    GPU), trains as its rank and leaves the group. Otherwise, when the
+    config's mesh asks for more than one GPU and the node has them, one
+    rank per GPU is spawned (``127.0.0.1``, a free port), as the JAX
+    package's one process trains on every device. Otherwise :func:`train`
+    runs in this process on one device. Returns the save dir."""
+    if distributed.launcher_counts()["world"] > 1 and not dist.is_initialized():
+        device = distributed.join_training(gpu_id)
+        try:
+            return train(config_file, device=device, stats=stats)
+        finally:
+            distributed.shutdown()
+    n = spawn_count(config_file, gpu_id)
+    if n > 1:
+        import torch.multiprocessing as mp
+        mp.start_processes(_spawned_rank, nprocs=n, start_method="spawn",
+                           args=(config_file, gpu_id, n, _free_port()))
+        return load_config(config_file).general.save_dir
+    return train(config_file, gpu_id=gpu_id, stats=stats)

@@ -7,7 +7,9 @@ probabilities (channels last), with per-class ``alpha`` and focusing
     loss = mean over voxels of  -alpha_c * (1 - p_c)^gamma * log(p_c)
 
 where ``c`` is each voxel's true class and ``p_c`` is clipped to
-``[eps, 1]``, eps 1e-7.
+``[eps, 1]``, eps 1e-7. Over several ranks it is each rank's mean over its
+own voxels: every rank holds as many, so DDP's average of the ranks'
+gradients is the whole batch's.
 """
 from __future__ import annotations
 

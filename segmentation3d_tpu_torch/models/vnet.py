@@ -25,6 +25,13 @@ backward) runs its forward twice; :func:`init_like_flax_` draws flax's
 ``he_normal`` weights; :func:`vnet_focal_init` sets the focal-loss head
 bias. Under ``torch.autocast(bfloat16)`` the convs run in bf16 and
 BatchNorm and the softmax in float32, as the flax net with ``dtype=bf16``.
+
+Over several ranks (:func:`distribute_`), in train mode, BatchNorm takes its
+statistics over every rank's rows and z planes (one all-reduce of the sums
+forward, one backward), as flax's BatchNorm does over a sharded batch under
+``jit``, and each 3^3 conv takes a plane of halo from its z neighbours
+(``parallel/collectives.py``). In eval mode the net runs on what it is
+given, with no collective.
 """
 from __future__ import annotations
 
@@ -33,9 +40,12 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from segmentation3d_tpu_torch.parallel.collectives import halo_exchange_z
 
 #: flax's truncated-normal correction: the std of a unit normal cut at +-2
 TRUNC_STD = 0.87962566103423978
@@ -96,6 +106,51 @@ class _BatchStatsNorm(torch.autograd.Function):
         return gx, gw, gb, None
 
 
+class _SyncBatchStatsNorm(torch.autograd.Function):
+    """:class:`_BatchStatsNorm` over the ranks of ``group``: the mean and
+    fast variance of every rank's values (one all-reduce of ``[sum(x),
+    sum(x^2), count]`` per channel, in the input's float type), and
+    BatchNorm's input gradient from the all-reduced ``[sum(gy),
+    sum(gy * xhat)]``. The weight and bias gradients stay this rank's own
+    sums: DDP sums them over the ranks. Plain tensor ops (ATen's
+    ``batch_norm_backward_reduce`` has no CPU kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        n = torch.full((1,), x.numel() / x.shape[1], dtype=x.dtype, device=x.device)
+        sums = torch.cat([torch.sum(x, dims), torch.sum(x * x, dims), n])
+        dist.all_reduce(sums, group=group)
+        c = x.shape[1]
+        count = sums[2 * c]
+        mean = sums[:c] / count
+        var = torch.clamp_min(sums[c:2 * c] / count - mean * mean, 0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = torch.addcmul(bias.view(shape), x - mean.view(shape),
+                          (invstd * weight).view(shape))
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xhat = (x - mean.view(shape)) * invstd.view(shape)
+        gb = torch.sum(gy, dims)
+        gw = torch.sum(gy * xhat, dims)
+        sums = torch.cat([gb, gw])
+        dist.all_reduce(sums, group=ctx.group)
+        c = x.shape[1]
+        gx = (weight * invstd).view(shape) * (
+            gy - (sums[:c] / count).view(shape)
+            - xhat * (sums[c:] / count).view(shape))
+        return gx, gw, gb, None, None
+
+
 class BatchNorm(nn.BatchNorm3d):
     """BatchNorm as flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
     dtype=float32)`` computes it, with ``BatchNorm3d``'s parameter and
@@ -107,11 +162,14 @@ class BatchNorm(nn.BatchNorm3d):
     variance 0, where ``BatchNorm3d`` raises) and, while ``update_stats``
     is set, ``running = 0.9 * running + 0.1 * batch`` for the mean and that
     variance (``BatchNorm3d`` moves ``running_var`` towards the unbiased
-    one)."""
+    one). With a process ``group`` (:func:`distribute_`) the train-mode
+    statistics are those of every rank's values (:class:`_SyncBatchStatsNorm`),
+    equal on every rank."""
 
     def __init__(self, c):
         super().__init__(c, eps=1e-5, momentum=0.1)
         self.update_stats = True
+        self.group = None
 
     def forward(self, x):
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -119,8 +177,12 @@ class BatchNorm(nn.BatchNorm3d):
             y = F.batch_norm(x32, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(x.dtype)
-        y, mean, var = _BatchStatsNorm.apply(x32, self.weight, self.bias,
-                                             self.eps)
+        if self.group is None:
+            y, mean, var = _BatchStatsNorm.apply(x32, self.weight, self.bias,
+                                                 self.eps)
+        else:
+            y, mean, var = _SyncBatchStatsNorm.apply(x32, self.weight, self.bias,
+                                                     self.eps, self.group)
         if self.update_stats:
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
@@ -149,16 +211,25 @@ def frozen_stats(module: nn.Module):
 
 
 class ConvBnAct(nn.Module):
-    """``ksize``^3 SAME conv (3 or 1) + BatchNorm + activation."""
+    """``ksize``^3 SAME conv (3 or 1) + BatchNorm + activation. With a
+    ``halo_group`` (a 3^3 conv over z slabs, :func:`distribute_`) the
+    training forward takes one plane from each z neighbour and pads only
+    y and x."""
 
     def __init__(self, cin, cout, act="relu", ksize=3):
         super().__init__()
         self.conv = nn.Conv3d(cin, cout, ksize, padding=ksize // 2)
         self.bn = _bn(cout)
         self.act = Activation(act)
+        self.halo_group = None
 
     def forward(self, x):
-        return self.act(self.bn(self.conv(x)))
+        if self.halo_group is not None and self.training:
+            x = F.conv3d(halo_exchange_z(x, self.halo_group), self.conv.weight,
+                         self.conv.bias, padding=(0, 1, 1))
+        else:
+            x = self.conv(x)
+        return self.act(self.bn(x))
 
 
 class BottConvBnAct(nn.Module):
@@ -324,6 +395,20 @@ class SegmentationNet(nn.Module):
             c //= 2
         out = self.out_block(x, return_logits)
         return out.permute(0, 2, 3, 4, 1)
+
+
+def distribute_(net: nn.Module, batch_group=None, z_group=None):
+    """Train ``net`` over several ranks: every BatchNorm takes its statistics
+    over the ranks of ``batch_group`` (all of them: each holds its rows and
+    z planes of the batch), every 3^3 conv its z halo from the ranks of
+    ``z_group`` (those that hold the same rows; None: whole crops). None
+    and None is the one-device net."""
+    for m in net.modules():
+        if isinstance(m, BatchNorm):
+            m.group = batch_group
+        elif isinstance(m, ConvBnAct) and m.conv.kernel_size[0] == 3:
+            m.halo_group = z_group
+    return net
 
 
 def init_like_flax_(net: nn.Module, generator: torch.Generator | None = None):

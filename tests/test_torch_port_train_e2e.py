@@ -257,9 +257,9 @@ def test_train_refuses_silent_cpu(data):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ("__C.tpu = edict()\n__C.tpu.mesh = edict()\n__C.tpu.mesh.data = 2\n", "multi-GPU"),
-    ("__C.tpu = edict()\n__C.tpu.mesh = edict()\n__C.tpu.mesh.spatial = 2\n", "multi-GPU"),
-    ("__C.general.num_gpus = 4\n", "multi-GPU"),
+    # JAX's order: the mesh first (one device here), then its rules
+    ("__C.tpu = edict()\n__C.tpu.mesh = edict()\n__C.tpu.mesh.spatial = 2\n",
+     "1 device\\(s\\) do not divide over a spatial mesh axis of 2"),
     ("__C.tpu = edict()\n__C.tpu.conv_backend = 'packed_domian'\n", "conv_backend"),
     ("__C.tpu = edict()\n__C.tpu.conv_backend = 'packed_domain'\n", "in_block packing"),
     ("__C.tpu = edict()\n__C.tpu.steps_per_dispatch = 2\n"
@@ -270,8 +270,22 @@ def test_train_refuses_silent_cpu(data):
 def test_config_rules(data, extra, match):
     root, cases = data
     cfg = _config(root, "rules", cases[:1], None, extra=extra)
-    with pytest.raises((ValueError, NotImplementedError), match=match):
+    with pytest.raises(ValueError, match=match):
         train(cfg, device="cpu")
+
+
+def test_more_devices_than_there_are_train_on_one(data):
+    """mesh.data = 2 (and num_gpus = 4) on the CPU, one device: the mesh is
+    clamped to it, as make_mesh clamps, and the run trains."""
+    root, cases = data
+    cfg = _config(root, "clamped", cases[:1], None, epochs=1, save_epochs=1,
+                  batchsize=1, extra="__C.general.num_gpus = 4\n__C.tpu = edict()\n"
+                                     "__C.tpu.mesh = edict()\n__C.tpu.mesh.data = 2\n")
+    train(cfg, device="cpu")
+    log = open(root / "clamped" / "train_log.txt").read()
+    assert "1 device(s) (data 1 x spatial 1), rank 0 on cpu" in log
+    assert "training group" not in log
+    assert os.path.isdir(root / "clamped" / "checkpoints" / "chk_1")
 
 
 def test_validation_fold_rules(data, monkeypatch):

@@ -70,7 +70,11 @@ __C.train.save_epochs = 100
 __C.debug = edict()
 __C.debug.save_inputs = False                   # dump training crops as NIfTI
 # __C.debug.profile_dir = "/tmp/trace"          # [TPU] profiler trace (the
-#                                               # port: torch.profiler)
+#                                               # port: torch.profiler's
+#                                               # trace.json, with the
+#                                               # program's spans of every
+#                                               # thread, each named, on
+#                                               # its clock)
 # __C.debug.debug_nans = False                  # [TPU] NaN checks (the port:
 #                                               # autograd anomaly mode)
 

@@ -39,6 +39,7 @@ from segmentation3d_tpu_torch.io import Volume
 from segmentation3d_tpu_torch.ops.geometry import Frame, resampled_frame
 from segmentation3d_tpu_torch.ops.resample import NN, resample_exec, resample_plan
 from segmentation3d_tpu_torch.parallel import shard_devices
+from segmentation3d_tpu_torch.utils import tracing
 
 
 def _post_prob_roi(prob, kind, coeffs, out_shape):
@@ -259,6 +260,7 @@ _C2F_SESSIONS: dict = {}
 _C2F_SESSION_CAP = 2
 
 
+@tracing.traced("infer.call")
 def segmentation_coarse_to_fine(
         input_path, coarse_model_dir, fine_model_dir, output_dir,
         seg_name="seg.mha", partition_size=(96, 96, 96),

@@ -16,7 +16,12 @@ device on a CUDA stream of its own; a materialize thread copies case N-1's
 mask back on another stream and runs the connected-component cleanup, and
 a write thread writes it.
 Every queue holds two cases. The calling thread's work is timed with CUDA
-events, so it never waits for the device to time a stage.
+events, so it never waits for the device to time a stage. Each case's host
+work is a :mod:`..utils.tracing` span on the thread that runs it (a call's
+root ``infer.call``; ``infer.decode``, ``infer.upload``, ``infer.read_wait``,
+``infer.enqueue``, ``infer.write_wait``, ``infer.materialize``,
+``infer.write``, all under the case's id; ``infer.drain`` at the end),
+which also gives the stage seconds ``read`` and ``write``.
 
 Under bf16 on a CUDA device the forward is the BN-folded kernel forward
 (:mod:`..models.fused_vnet`), as the JAX package's rule picks its fused
@@ -70,7 +75,7 @@ from segmentation3d_tpu_torch.ops.geometry import (
 )
 from segmentation3d_tpu_torch.ops.resample import NN, resample_exec, resample_plan
 from segmentation3d_tpu_torch.parallel import distinct, distributed, shard_devices
-from segmentation3d_tpu_torch.utils import model_io
+from segmentation3d_tpu_torch.utils import model_io, tracing
 from segmentation3d_tpu_torch.utils.device import no_tf32, resolve_device
 from segmentation3d_tpu_torch.utils.normalizer import (
     AdaptiveNormalizer, normalizer_from_dict,
@@ -600,15 +605,16 @@ def default_decoders() -> int:
     return max(1, min(MAX_DECODERS, os.cpu_count() or 1))
 
 
-def _read_case(image_paths):
-    """Read one case's modalities: ``(vols, error, start, seconds)``; an
-    unreadable case returns its error, surfaced at consumption time."""
-    t0 = time.perf_counter()
-    try:
-        vols, err = [read_image(p) for p in image_paths], None
-    except Exception as e:
-        vols, err = None, e
-    return vols, err, t0, time.perf_counter() - t0
+def _read_case(image_paths, case=None, within=None):
+    """Read one case's modalities: ``(vols, error, span)``, ``span`` the
+    case's ``infer.decode``; an unreadable case returns its error, surfaced
+    at consumption time."""
+    with tracing.span("infer.decode", case, within) as span:
+        try:
+            vols, err = [read_image(p) for p in image_paths], None
+        except Exception as e:
+            vols, err = None, e
+    return vols, err, span
 
 
 class _ReadAhead:
@@ -623,41 +629,48 @@ class _ReadAhead:
 
     so the decodes of the next cases, the upload of case N+1 and the device
     work of case N overlap. Iterating yields ``(paths, vols, devs,
-    read_error, (start, seconds))``: ``devs`` the modalities' device tensors
-    (the consumer marks them used by its own stream, :func:`_adopt`),
+    read_error, (start, seconds, case))``: ``devs`` the modalities' device
+    tensors (the consumer marks them used by its own stream, :func:`_adopt`),
     ``start`` the ``perf_counter`` at which the case's read began,
-    ``seconds`` the time of both stages. An unreadable case yields its
-    error; one failed case must not abort the batch, so the caller decides.
-    An error that ends a thread is raised to the consumer instead of ending
-    the cases."""
+    ``seconds`` the time of both stages (its ``infer.decode`` and
+    ``infer.upload`` spans), ``case`` the case's id in every span; the
+    consumer's wait in ``__next__`` is ``infer.read_wait``.
+    An unreadable case yields its error; one failed case must not abort the
+    batch, so the caller decides. An error that ends a thread is raised to
+    the consumer instead of ending the cases."""
 
     def __init__(self, cases, device, depth=2):
+        cases = list(cases)
         self.device = device
         self.decoders = default_decoders()
         self.q = queue.Queue(maxsize=max(1, depth))
         self._uq = queue.Queue(maxsize=1)
         self._stop = threading.Event()
         self.error = None
-        self._dt = threading.Thread(target=self._decode, args=(list(cases),),
+        self._within = tracing.context()
+        self._dt = threading.Thread(target=self._decode, args=(cases,),
+                                    name="read-ahead-decode", daemon=True)
+        self._ut = threading.Thread(target=self._upload, name="read-ahead-upload",
                                     daemon=True)
-        self._ut = threading.Thread(target=self._upload, daemon=True)
         self._dt.start()
         self._ut.start()
 
     def _decode(self, cases):
         """Keep ``decoders`` reads in flight and hand them on in order."""
         try:
-            todo = iter(cases)
+            todo = enumerate(cases, tracing.new_ids(len(cases)))
             with ThreadPoolExecutor(self.decoders, "read-ahead") as pool:
                 pending = deque(
-                    (paths, pool.submit(_read_case, paths))
-                    for paths in itertools.islice(todo, self.decoders))
+                    (paths, pool.submit(_read_case, paths, cid, self._within))
+                    for cid, paths in itertools.islice(todo, self.decoders))
                 while pending and not self._stop.is_set():
                     paths, read = pending.popleft()
                     self._uq.put((paths, *read.result()))
                     nxt = next(todo, None)
                     if nxt is not None:
-                        pending.append((nxt, pool.submit(_read_case, nxt)))
+                        cid, paths = nxt
+                        pending.append((paths, pool.submit(_read_case, paths, cid,
+                                                           self._within)))
                 for _, read in pending:  # stopped: drop the reads not begun
                     read.cancel()
         except BaseException as e:  # raised again by __next__
@@ -672,18 +685,20 @@ class _ReadAhead:
             stream = torch.cuda.Stream(self.device) if cuda else None
             with torch.cuda.stream(stream):
                 while (item := self._uq.get()) is not None:
-                    image_paths, vols, err, t0, secs = item
-                    devs = None
+                    image_paths, vols, err, decode = item
+                    devs, secs = None, decode.seconds
                     if err is None and not self._stop.is_set():
-                        t = time.perf_counter()
-                        try:
-                            devs = [_upload(v.data, self.device) for v in vols]
-                            if cuda:
-                                stream.synchronize()
-                        except Exception as e:  # surfaced at consumption time
-                            err = e
-                        secs += time.perf_counter() - t
-                    self.q.put((image_paths, vols, devs, err, (t0, secs)))
+                        with tracing.span("infer.upload", decode.case,
+                                          self._within) as upload:
+                            try:
+                                devs = [_upload(v.data, self.device) for v in vols]
+                                if cuda:
+                                    stream.synchronize()
+                            except Exception as e:  # surfaced at consumption time
+                                err = e
+                        secs += upload.seconds
+                    self.q.put((image_paths, vols, devs, err,
+                                (decode.t0 / 1e9, secs, decode.case)))
         except BaseException as e:  # raised again by __next__
             self.error = e
             raise
@@ -694,7 +709,10 @@ class _ReadAhead:
         return self
 
     def __next__(self):
-        item = self.q.get()
+        with tracing.span("infer.read_wait") as wait:
+            item = self.q.get()
+            if item is not None:
+                wait.case = item[-1][2]  # the id of the case it yields
         if item is None:
             if self.error is not None:
                 raise self.error
@@ -725,15 +743,18 @@ def _adopt(tensors):
 
 class _Case:
     """One case on its way through the pipeline: where its read began, its
-    seconds by stage (filled in by the threads that run them) and when its
-    write ended."""
+    seconds by stage (filled in by the threads that run them), when its
+    write ended, its id and the context of its later spans (its
+    ``infer.enqueue``)."""
 
-    def __init__(self, name, start, read_seconds, label):
+    def __init__(self, name, start, read_seconds, label, case_id=None):
         self.name, self.start, self.label = name, start, label
         self.secs = {"read": read_seconds}
         self.clock = None
         self.note = ""
         self.end = None
+        self.id = case_id
+        self.within = None
 
 
 class _WriteBehind:
@@ -747,17 +768,21 @@ class _WriteBehind:
 
     so case N's write overlaps case N+1's readback, which overlaps case
     N+2's device work. Each case's stage seconds are completed here: its
-    device stages from its clock, the materialize time added to ``back``,
-    and ``write``. A failure of either stage is collected with the case's
-    name and returned by :meth:`close`."""
+    device stages from its clock, the materialize time (its
+    ``infer.materialize`` span) added to ``back``, and ``write`` (its
+    ``infer.write`` span). The caller's wait in :meth:`submit` is
+    ``infer.write_wait``. A failure of either stage is collected with the
+    case's name and returned by :meth:`close`."""
 
     def __init__(self, device, depth=2):
         self.device = device
         self.q = queue.Queue(maxsize=max(1, depth))
         self._wq = queue.Queue(maxsize=max(1, depth))
         self.failures = []
-        self._mt = threading.Thread(target=self._materialize, daemon=True)
-        self._wt = threading.Thread(target=self._write, daemon=True)
+        self._mt = threading.Thread(target=self._materialize,
+                                    name="write-behind-materialize", daemon=True)
+        self._wt = threading.Thread(target=self._write, name="write-behind-write",
+                                    daemon=True)
         self._mt.start()
         self._wt.start()
 
@@ -770,11 +795,11 @@ class _WriteBehind:
                     case, jobs = item
                     try:
                         case.secs.update(case.clock.seconds())
-                        t = time.perf_counter()
-                        jobs = [(v.materialize() if isinstance(v, _DeferredVolume)
-                                 else v, path) for v, path in jobs]
-                        case.secs["back"] = (case.secs.get("back", 0.0)
-                                             + time.perf_counter() - t)
+                        with tracing.span("infer.materialize", case.id,
+                                          case.within) as span:
+                            jobs = [(v.materialize() if isinstance(v, _DeferredVolume)
+                                     else v, path) for v, path in jobs]
+                        case.secs["back"] = case.secs.get("back", 0.0) + span.seconds
                     except Exception as e:  # collected, surfaced at close
                         traceback.print_exc()
                         self.failures.append((case.name, e))
@@ -786,12 +811,12 @@ class _WriteBehind:
     def _write(self):
         while (item := self._wq.get()) is not None:
             case, jobs = item
-            t = time.perf_counter()
             try:
-                for vol, path in jobs:
-                    write_image(vol, path)
-                case.end = time.perf_counter()
-                case.secs["write"] = case.end - t
+                with tracing.span("infer.write", case.id, case.within) as span:
+                    for vol, path in jobs:
+                        write_image(vol, path)
+                case.end = span.t1 / 1e9
+                case.secs["write"] = span.seconds
                 print(f"{case.label} of {case.name}: "
                       f"{case.end - case.start:.2f} s{case.note}")
             except Exception as e:  # collected, surfaced at close
@@ -799,7 +824,8 @@ class _WriteBehind:
                 self.failures.append((case.name, e))
 
     def submit(self, case, jobs):
-        self.q.put((case, jobs))
+        with tracing.span("infer.write_wait", case.id):
+            self.q.put((case, jobs))
 
     def close(self):
         """Drain both stages; returns the ``(case name, error)`` failures."""
@@ -895,16 +921,18 @@ def _case_loop(prepared, output_dir, run_case, label="segmentation"):
     cases, failures = [], []
     writer = _WriteBehind(prepared.device)
     try:
-        for (paths, vols, devs, read_err, (start, read_s)), name in zip(
+        for (paths, vols, devs, read_err, (start, read_s, case_id)), name in zip(
                 prepared.reader, prepared.names):
             if read_err is not None:
                 print(f"ERROR: skipping {name}: {read_err}")
                 failures.append((name, read_err))
                 continue
-            case = _Case(name, start, read_s, label)
+            case = _Case(name, start, read_s, label, case_id)
             try:
-                _adopt(devs)
-                jobs = run_case(case, vols, devs, os.path.join(output_dir, name))
+                with tracing.span("infer.enqueue", case.id):
+                    case.within = tracing.context()
+                    _adopt(devs)
+                    jobs = run_case(case, vols, devs, os.path.join(output_dir, name))
             except Exception as e:  # one bad case must not abort the batch
                 traceback.print_exc()
                 print(f"ERROR: {label} of {name} failed: {e}")
@@ -917,7 +945,9 @@ def _case_loop(prepared, output_dir, run_case, label="segmentation"):
         # a config-level error): cases already handed to it must not silently
         # lose their pending writes
         prepared.close()
-        for name, e in writer.close():
+        with tracing.span("infer.drain"):
+            closed = writer.close()
+        for name, e in closed:
             print(f"ERROR: writing results of {name} failed: {e}")
             failures.append((name, e))
     failed = {name for name, _ in failures}
@@ -1014,6 +1044,7 @@ def _check_spatial_shard(spatial_shard, partition_type, devices, tta, model_dirs
         raise ValueError("ensembles are not supported with spatial_shard")
 
 
+@tracing.traced("infer.call")
 def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
                  gpu_id=0, save_image=False, save_prob=False,
                  partition_type=DISABLE, partition_size=None,

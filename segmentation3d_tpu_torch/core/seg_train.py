@@ -20,7 +20,13 @@ runs with TF32 off; bfloat16 (``cfg.tpu.dtype``) runs the forward under
 loss, as the flax net with ``dtype=bf16``. Batch b+1 is cropped on the
 device by a background thread on its own CUDA stream while step b runs
 (:class:`_BatchPrefetcher`). Loss values are read back every ``log_every``
-steps and at save points, never once per step.
+steps and at save points, never once per step. The loop's host work is
+:mod:`..utils.tracing` spans: ``train.call`` (the root), ``train.batch_wait``,
+``train.step`` (``train_step``'s enqueue), ``train.flush``,
+``train.save_point``, and the prefetcher's ``train.batch``; the dataset
+counts the crops whose case it uploaded for that crop alone
+(``train.stage_miss``, ``train.stage_bytes``). ``debug.profile_dir`` writes
+the profiler's Chrome trace with these spans, from every thread, in it.
 
 ``cfg.tpu.conv_backend``, ``cfg.tpu.steps_per_dispatch`` and
 ``cfg.tpu.log_every`` choose how a TPU runs the same function: their values
@@ -67,7 +73,7 @@ from segmentation3d_tpu_torch.parallel import distributed
 from segmentation3d_tpu_torch.parallel.collectives import world_mean
 from segmentation3d_tpu_torch.parallel.train_mesh import (TrainMesh, mesh_shape,
                                                           requested_devices)
-from segmentation3d_tpu_torch.utils import model_io
+from segmentation3d_tpu_torch.utils import model_io, tracing
 from segmentation3d_tpu_torch.utils.device import no_tf32, resolve_device
 from segmentation3d_tpu_torch.utils.file_io import setup_logger
 
@@ -98,7 +104,9 @@ class _BatchPrefetcher:
     tensors are marked as used by that stream (``record_stream``), so the
     allocator does not hand their memory to the next batch early. A failing
     batch raises in the train loop (``RuntimeError``), never hangs it.
-    ``wait_seconds`` sums the time the consumer waited for a batch.
+    Each batch is a ``train.batch`` span of the thread; ``wait_seconds``
+    sums the time the consumer waited for a batch (its ``train.batch_wait``
+    spans).
 
     Over several ranks every rank draws the same global index stream and
     crops only its own positions of each batch (``rows``) and keeps its own
@@ -114,7 +122,9 @@ class _BatchPrefetcher:
         self.wait_seconds = 0.0
         self._stop = threading.Event()
         self.q = queue.Queue(maxsize=max(1, depth))
-        self.thread = threading.Thread(target=self._run, daemon=True)
+        self._within = tracing.context()
+        self.thread = threading.Thread(target=self._run, name="batch-prefetch",
+                                       daemon=True)
         self.thread.start()
 
     def _run(self):
@@ -130,7 +140,8 @@ class _BatchPrefetcher:
                 if self.rows is not None:
                     idxs = [idxs[i] for i in self.rows]
                 try:
-                    images, segs, frames, names = self.dataset.batch(idxs)
+                    with tracing.span("train.batch", within=self._within):
+                        images, segs, frames, names = self.dataset.batch(idxs)
                     if self.z is not None:
                         images = images[:, self.z].contiguous()
                         segs = segs[:, self.z].contiguous()
@@ -153,9 +164,9 @@ class _BatchPrefetcher:
         return self
 
     def __next__(self):
-        t = time.perf_counter()
-        item = self.q.get()
-        self.wait_seconds += time.perf_counter() - t
+        with tracing.span("train.batch_wait") as wait:
+            item = self.q.get()
+        self.wait_seconds += wait.seconds
         if item is None:
             raise StopIteration
         if isinstance(item, Exception):
@@ -330,6 +341,7 @@ def _save_inputs(save_dir, batch_idx, images, segs, frames, names):
                     os.path.join(dbg, f"batch{batch_idx}_{name}_seg.nii.gz"))
 
 
+@tracing.traced("train.call")
 def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = None):
     """Train the config's net on ``cuda:<gpu_id>`` (``device``/``gpu_id=-1``:
     the CPU); raises when no CUDA device is available and the CPU was not
@@ -485,12 +497,12 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
     stats.setdefault("save_point_seconds", [])
 
     def save_point(epoch_idx, batch_idx):
-        t = time.perf_counter()
-        if primary:
-            save(epoch_idx, batch_idx)
-            validate(epoch_idx, batch_idx)
-        distributed.barrier(f"chk_{epoch_idx}")
-        stats["save_point_seconds"].append(time.perf_counter() - t)
+        with tracing.span("train.save_point") as span:
+            if primary:
+                save(epoch_idx, batch_idx)
+                validate(epoch_idx, batch_idx)
+            distributed.barrier(f"chk_{epoch_idx}")
+        stats["save_point_seconds"].append(span.seconds)
 
     def validate(epoch_idx, batch_idx):
         nonlocal best_dice
@@ -547,7 +559,8 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
             return
         # every rank reads the losses (the global batch's: the mean over the
         # ranks), which keeps the ranks in step; rank 0 writes them
-        values = world_mean(torch.stack([p[2] for p in pending])).cpu().tolist()
+        with tracing.span("train.flush"):
+            values = world_mean(torch.stack([p[2] for p in pending])).cpu().tolist()
         stats["flushes"].append((steps, time.perf_counter(),
                                  prefetcher.wait_seconds))
         if not primary:
@@ -585,9 +598,10 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
                     images, segs, frames, names = next(prefetcher)
                 except StopIteration:
                     break
-                loss = train_step(model, optimizer, loss_fn, images, segs,
-                                  dtype=dtype, accum=grad_accum,
-                                  lr=schedule(opt_count))
+                with tracing.span("train.step"):
+                    loss = train_step(model, optimizer, loss_fn, images, segs,
+                                      dtype=dtype, accum=grad_accum,
+                                      lr=schedule(opt_count))
                 opt_count += 1
                 steps += 1
                 dt = time.time() - t0
@@ -618,7 +632,9 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
             save_point(final_epoch, max(batch_idx - 1, 0))
     if profiler is not None:
         os.makedirs(profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        trace = os.path.join(profile_dir, "trace.json")
+        profiler.export_chrome_trace(trace)
+        tracing.add_to_chrome_trace(trace, tracing.take())
     if primary:
         from segmentation3d_tpu_torch.utils.plotting import (plot_loss_curve,
                                                              plot_val_curve)

@@ -30,6 +30,13 @@ prepared ahead of the one executing, which bounds device memory to one
 request's uploaded volumes beside the running one. ``ping`` is answered
 at once (health checks must not wait behind a long segmentation);
 ``shutdown`` queues FIFO, so requests sent before it still run.
+
+Each segmentation request gets an id when the reader thread receives it.
+Its :mod:`..utils.tracing` spans carry it on every thread, those of the
+read-ahead that ``prep_fn`` starts too: ``serve.pending`` (receipt to the
+start of its execution) and ``serve.exec`` (:meth:`SegmentationServer.run`,
+with the case loop inside); the response's ``secs`` is the ``serve.exec``
+span's.
 """
 from __future__ import annotations
 
@@ -40,6 +47,8 @@ import queue as _queue
 import socket
 import threading
 import time
+
+from segmentation3d_tpu_torch.utils import tracing
 
 # per-request fields accepted by a segmentation request; anything else is
 # rejected loudly (engine options cannot change per request: they would
@@ -94,21 +103,22 @@ class SegmentationServer:
                 "uptime_s": round(time.time() - self._t0, 1)}
 
     def run(self, req: dict, prepared=None) -> dict:
-        """Execute one (already-validated) segmentation request."""
+        """Execute one (already-validated) segmentation request; its
+        ``secs`` are the ``serve.exec`` span's."""
         try:
-            t0 = time.time()
             kw = {}
             if self._takes_prepared:
                 kw["prepared"] = prepared
-            results = self.run_fn(
-                str(req["input"]), str(req["output_dir"]),
-                str(req.get("seg_name", self.seg_name)),
-                bool(req.get("save_image", False)),
-                bool(req.get("save_prob", False)), **kw)
+            with tracing.span("serve.exec") as span:
+                results = self.run_fn(
+                    str(req["input"]), str(req["output_dir"]),
+                    str(req.get("seg_name", self.seg_name)),
+                    bool(req.get("save_image", False)),
+                    bool(req.get("save_prob", False)), **kw)
             self.served += len(results)
             return {"ok": True,
                     "results": [[r[0], round(float(r[1]), 3)] for r in results],
-                    "secs": round(time.time() - t0, 3)}
+                    "secs": round(span.seconds, 3)}
         except Exception as e:  # per-request isolation: the server survives
             return {"ok": False, "error": f"{type(e).__name__}: {e}"}
 
@@ -166,7 +176,9 @@ def _bind(socket_path: str | None, host: str | None, port: int | None):
 
 class _Job:
     """One queued request: the parsed dict + a thread-safe responder bound
-    to its connection (reader and executor threads share the socket)."""
+    to its connection (reader and executor threads share the socket). A
+    segmentation request's span ``serve.pending`` starts at receipt;
+    ``within`` carries its id to its later spans."""
 
     def __init__(self, req, respond, kind):
         self.req = req
@@ -175,6 +187,10 @@ class _Job:
         self.prepared = None
         self.prep_error = None
         self.done = threading.Event()
+        self.pending = self.within = None
+        if kind == "run":
+            self.within = tracing.Context(None, tracing.new_ids())
+            self.pending = tracing.begin("serve.pending", within=self.within)
 
 
 def _reader(conn, server, jobs, idle_timeout, max_request_bytes, log,
@@ -285,7 +301,8 @@ def serve_forever(server: SegmentationServer, socket_path: str | None = None,
             if (job is not None and job.kind == "run" and prep_fn is not None
                     and not stop_evt.is_set()):
                 try:
-                    job.prepared = prep_fn(job.req)
+                    with tracing.bound(job.within):
+                        job.prepared = prep_fn(job.req)
                 except Exception as e:  # surfaced by the exec stage
                     job.prep_error = e
             execq.put(job)
@@ -301,10 +318,10 @@ def serve_forever(server: SegmentationServer, socket_path: str | None = None,
             threading.Thread(
                 target=_reader,
                 args=(conn, server, jobs, idle_timeout, max_request_bytes,
-                      log, stop_evt), daemon=True).start()
+                      log, stop_evt), name="serve-reader", daemon=True).start()
 
-    prep_t = threading.Thread(target=prep_loop, daemon=True)
-    accept_t = threading.Thread(target=accept_loop, daemon=True)
+    prep_t = threading.Thread(target=prep_loop, name="serve-prep", daemon=True)
+    accept_t = threading.Thread(target=accept_loop, name="serve-accept", daemon=True)
     prep_t.start()
     accept_t.start()
 
@@ -318,12 +335,14 @@ def serve_forever(server: SegmentationServer, socket_path: str | None = None,
                 if job.kind == "shutdown":
                     job.respond({"ok": True, "shutdown": True})
                     break
+                job.pending.end()
                 if job.prep_error is not None:
                     job.respond({"ok": False, "error":
                                  f"{type(job.prep_error).__name__}: "
                                  f"{job.prep_error}"})
                 else:
-                    job.respond(server.run(job.req, prepared=job.prepared))
+                    with tracing.bound(job.within):
+                        job.respond(server.run(job.req, prepared=job.prepared))
             finally:
                 job.done.set()
     finally:

@@ -28,6 +28,7 @@ import torch
 
 from segmentation3d_tpu_torch.io import read_image
 from segmentation3d_tpu_torch.ops.resample import LINEAR, NN, crop_at_world_center
+from segmentation3d_tpu_torch.utils import tracing
 
 GLOBAL, MASK, CENTER, MIX = "GLOBAL", "MASK", "CENTER", "MIX"
 
@@ -112,7 +113,8 @@ class _Case:
     def stage(self, budget: list, device) -> tuple:
         """``(image tensors, seg tensor)`` on ``device`` for cropping; kept
         there for later items while they fit the remaining ``budget[0]``
-        bytes, else uploaded for this item only."""
+        bytes, else uploaded for this item only (counted by the tracing
+        counters ``train.stage_miss`` and ``train.stage_bytes``)."""
         if self.dev_images is not None:
             return self.dev_images, self.dev_seg
         images = [torch.from_numpy(np.ascontiguousarray(v.data)).to(device)
@@ -121,6 +123,9 @@ class _Case:
         if budget[0] >= self.nbytes:
             self.dev_images, self.dev_seg = images, seg
             budget[0] -= self.nbytes
+        else:
+            tracing.count("train.stage_miss")
+            tracing.count("train.stage_bytes", self.nbytes)
         return images, seg
 
 

@@ -236,7 +236,9 @@ def test_several_decoders_keep_the_input_order(monkeypatch):
     items = list(reader)
     assert [it[0] for it in items] == cases
     assert state["most"] > 1  # the reads overlapped
-    for i, (paths, vols, devs, err, (start, secs)) in enumerate(items):
+    ids = [it[-1][2] for it in items]
+    assert ids == list(range(ids[0], ids[0] + len(cases)))  # one id a case, in order
+    for i, (paths, vols, devs, err, (start, secs, case)) in enumerate(items):
         if i == 3:
             assert isinstance(err, ValueError) and vols is None and devs is None
             continue

@@ -24,8 +24,9 @@ steps and at save points, never once per step. The loop's host work is
 :mod:`..utils.tracing` spans: ``train.call`` (the root), ``train.batch_wait``,
 ``train.step`` (``train_step``'s enqueue), ``train.flush``,
 ``train.save_point``, and the prefetcher's ``train.batch``; the dataset
-counts the crops whose case it uploaded for that crop alone
-(``train.stage_miss``, ``train.stage_bytes``). ``debug.profile_dir`` writes
+counts the crops whose case its device cache does not hold and the bytes
+of the source boxes it uploaded for them (``train.stage_miss``,
+``train.stage_bytes``). ``debug.profile_dir`` writes
 the profiler's Chrome trace with these spans, from every thread, in it.
 
 ``cfg.tpu.conv_backend``, ``cfg.tpu.steps_per_dispatch`` and

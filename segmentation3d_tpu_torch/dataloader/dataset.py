@@ -10,8 +10,12 @@ The port of ``segmentation3d_tpu/dataloader/dataset.py`` (``read_train_txt``,
   same crops in both packages;
 - the **device** does the fixed-spacing trilinear / NN crop-resample,
   per-modality normalization and the augmentations (flips, in-plane rot90,
-  elastic warp, intensity scale and shift, gaussian noise). The source
-  volumes stay on the device up to ``device_cache_gb``.
+  elastic warp, intensity scale and shift, gaussian noise). A crop reads
+  only its source box (``ops.resample.source_box``: the smallest index box
+  of each volume that holds every voxel its interpolation touches, ~12 MB
+  for a 96³ crop at 1 mm of a 0.7×0.7×1.25 mm CT). Whole cases stay on the
+  device while they fit ``device_cache_gb`` and are cropped through a view
+  of the box; a case beyond it has only the box uploaded, crop by crop.
 
 The gaussian noise comes from a ``torch.Generator`` seeded ``seed + 7`` on
 the crop device (the JAX package uses a PRNG key of that seed), never from
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 from segmentation3d_tpu_torch.io import read_image
-from segmentation3d_tpu_torch.ops.resample import LINEAR, NN, crop_at_world_center
+from segmentation3d_tpu_torch.ops.resample import (LINEAR, NN, crop_at_world_center,
+                                                    source_box)
 from segmentation3d_tpu_torch.utils import tracing
 
 GLOBAL, MASK, CENTER, MIX = "GLOBAL", "MASK", "CENTER", "MIX"
@@ -77,7 +82,8 @@ def read_case_list(path):
 class _Case:
     """Lazy-loaded, RAM-cached case: modality volumes + seg + the foreground
     voxel indices for MASK sampling. :meth:`stage` keeps the voxels on the
-    crop device while they fit the dataset's budget."""
+    crop device while they fit the dataset's budget, and otherwise uploads
+    only each crop's source box."""
 
     __slots__ = ("im_paths", "seg_path", "images", "seg", "fg_indices", "name",
                  "dev_images", "dev_seg", "nbytes")
@@ -110,22 +116,28 @@ class _Case:
                            + self.seg.data.size * 4)
         return self
 
-    def stage(self, budget: list, device) -> tuple:
-        """``(image tensors, seg tensor)`` on ``device`` for cropping; kept
-        there for later items while they fit the remaining ``budget[0]``
-        bytes, else uploaded for this item only (counted by the tracing
-        counters ``train.stage_miss`` and ``train.stage_bytes``)."""
-        if self.dev_images is not None:
-            return self.dev_images, self.dev_seg
-        images = [torch.from_numpy(np.ascontiguousarray(v.data)).to(device)
-                  for v in self.images]
-        seg = torch.from_numpy(self.seg.data.astype(np.int32)).to(device)
-        if budget[0] >= self.nbytes:
-            self.dev_images, self.dev_seg = images, seg
+    def stage(self, budget: list, device, boxes) -> tuple:
+        """``(image tensors, seg tensor)`` on ``device`` for one crop: the
+        part of each volume inside its box (``boxes``: the images', then the
+        seg's ``SourceBox``). The whole case is uploaded once and kept
+        there while it fits the remaining ``budget[0]`` bytes, and the boxes
+        are views of it; else only the boxes are uploaded, for this crop
+        (counted by the tracing counters ``train.stage_miss`` and
+        ``train.stage_bytes``)."""
+        if self.dev_images is None and budget[0] >= self.nbytes:
+            self.dev_images = [torch.from_numpy(np.ascontiguousarray(v.data)).to(device)
+                               for v in self.images]
+            self.dev_seg = torch.from_numpy(self.seg.data.astype(np.int32)).to(device)
             budget[0] -= self.nbytes
-        else:
-            tracing.count("train.stage_miss")
-            tracing.count("train.stage_bytes", self.nbytes)
+        *im_boxes, seg_box = boxes
+        if self.dev_images is not None:
+            return ([t[b.slices] for t, b in zip(self.dev_images, im_boxes)],
+                    self.dev_seg[seg_box.slices])
+        images = [torch.from_numpy(np.ascontiguousarray(v.data[b.slices])).to(device)
+                  for v, b in zip(self.images, im_boxes)]
+        seg = torch.from_numpy(self.seg.data[seg_box.slices].astype(np.int32)).to(device)
+        tracing.count("train.stage_miss")
+        tracing.count("train.stage_bytes", sum(t.nbytes for t in images) + seg.nbytes)
         return images, seg
 
 
@@ -207,20 +219,22 @@ class SegmentationDataset:
     def __getitem__(self, idx: int):
         case = self.cases[idx].load()
         center = self._select_center_world(case)
-        img_arrays, seg_array = case.stage(self._dev_budget, self.device)
+        boxes = [source_box(v.frame, v.data.shape[:3], center, self.crop_size,
+                            self.spacing) for v in case.images + [case.seg]]
+        img_arrays, seg_array = case.stage(self._dev_budget, self.device, boxes)
         crops = []
         crop_frame = None
         for mi, im in enumerate(case.images):
             crop, crop_frame = crop_at_world_center(
                 img_arrays[mi], im.frame, center, self.crop_size, self.spacing,
-                interp=self.interpolation)
+                interp=self.interpolation, box=boxes[mi])
             if self.crop_normalizers is not None and self.crop_normalizers[mi] is not None:
                 crop = self.crop_normalizers[mi](crop)
             crops.append(crop)
         image = torch.stack(crops, dim=-1)  # [D,H,W,C]
         seg, _ = crop_at_world_center(
             seg_array, case.seg.frame, center,
-            self.crop_size, self.spacing, interp=NN)
+            self.crop_size, self.spacing, interp=NN, box=boxes[-1])
         seg = torch.clamp(seg, 0, self.num_classes - 1)
         if self.random_flip:
             for ax in range(3):

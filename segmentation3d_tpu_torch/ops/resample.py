@@ -11,6 +11,11 @@ The port of ``segmentation3d_tpu/ops/resample.py`` (``resample_plan``,
 - **General path** (arbitrary direction matrices): a chunked trilinear/NN
   gather over the output volume.
 
+A training crop reads only its :func:`source_box`: given ``box``, the cores
+take that part of the volume and weight it by exactly the columns of the
+whole volume's interpolation, judged against the whole volume's bounds, so
+the crop is the same (NN bit for bit; LINEAR up to float32 summation order).
+
 Boundary semantics follow ITK's ``ResampleImageFilter``: sample points whose
 continuous source index falls outside ``[0, size-1]`` get the fill value;
 NN rounds half up (``floor(c + 0.5)``); integer outputs are rounded with
@@ -19,6 +24,9 @@ NN rounds half up (``floor(c + 0.5)``); integer outputs are rounded with
 Tensors are ``[D, H, W]`` (= [z, y, x]) or channels-last ``[D, H, W, C]``.
 """
 from __future__ import annotations
+
+import itertools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,12 +48,45 @@ def _is_separable(m: np.ndarray, tol: float = 1e-9) -> bool:
     return bool(np.all(np.abs(off) <= tol))
 
 
-def _interp_matrix(out_n: int, in_n: int, a, b, interp: str, device):
-    """Dense [out_n, in_n] 1-D interpolation matrix for src coord c = a*i + b.
-    Rows of out-of-range samples are all-zero (ITK's default pixel value for
-    a zero fill)."""
+class SourceBox(NamedTuple):
+    """Index box ``[lo, hi)`` (zyx) of a volume of ``size`` (zyx) voxels."""
+    lo: tuple
+    hi: tuple
+    size: tuple
+
+    @property
+    def slices(self) -> tuple:
+        return tuple(slice(a, b) for a, b in zip(self.lo, self.hi))
+
+
+def source_box(frame: Frame, size_zyx, center_world, out_size_xyz,
+               out_spacing_xyz) -> SourceBox:
+    """The smallest box of a ``size_zyx`` volume in ``frame`` that holds every
+    voxel :func:`crop_at_world_center` reads for this crop: the crop grid's
+    corners mapped to source indices in float64, ``floor(min)`` to
+    ``floor(max) + 1`` (the trilinear neighbour), widened by a bound on the
+    cores' float32 rounding of those indices and clipped to the volume. A
+    crop wholly outside keeps one edge voxel, which it weights by zero."""
+    crop_frame = frame_for_crop(frame, center_world, out_size_xyz, out_spacing_xyz)
+    m = _compose_dst_to_src(frame, crop_frame)
+    last = np.asarray(out_size_xyz, np.float64) - 1.0
+    corners = np.array(list(itertools.product(*[(0.0, n) for n in last])))
+    c = corners @ m[:3, :3].T + m[:3, 3]
+    tol = 1e-6 * (1.0 + np.abs(m[:3, :3]) @ last + np.abs(m[:3, 3]))
+    top = np.asarray(size_zyx, np.int64)[::-1] - 1
+    lo = np.clip(np.floor(c.min(axis=0) - tol), 0, top).astype(np.int64)
+    hi = np.clip(np.floor(c.max(axis=0) + tol) + 1, 0, top).astype(np.int64) + 1
+    return SourceBox(tuple(lo[::-1].tolist()), tuple(hi[::-1].tolist()),
+                     tuple(int(n) for n in size_zyx))
+
+
+def _interp_matrix(out_n: int, in_n: int, a, b, interp: str, device, lo: int,
+                   n: int):
+    """Columns ``lo .. lo + n - 1`` of the dense [out_n, in_n] 1-D
+    interpolation matrix for src coord c = a*i + b. Rows of out-of-range
+    samples are all-zero (ITK's default pixel value for a zero fill)."""
     i = torch.arange(out_n, dtype=torch.float32, device=device)[:, None]
-    j = torch.arange(in_n, dtype=torch.float32, device=device)[None, :]
+    j = torch.arange(lo, lo + n, dtype=torch.float32, device=device)[None, :]
     c = a * i + b
     valid = (c >= 0.0) & (c <= in_n - 1.0)
     if interp == NN:
@@ -59,16 +100,18 @@ def _interp_matrix(out_n: int, in_n: int, a, b, interp: str, device):
 
 
 def _separable_core(data, coeffs, out_shape, interp=LINEAR, fill=0.0,
-                    out_dtype=None):
+                    out_dtype=None, lo=(0, 0, 0), size=None):
     squeeze = data.dim() == 3
     if squeeze:
         data = data[..., None]
     in_shape = data.shape[:3]
+    size = size or in_shape
     res_dtype = out_dtype or data.dtype
     x = data.to(torch.float32)
     coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=data.device)
-    ws = [_interp_matrix(out_shape[ax], in_shape[ax], coeffs[ax, 0],
-                         coeffs[ax, 1], interp, data.device) for ax in range(3)]
+    ws = [_interp_matrix(out_shape[ax], size[ax], coeffs[ax, 0], coeffs[ax, 1],
+                         interp, data.device, lo[ax], in_shape[ax])
+          for ax in range(3)]
 
     def apply(v):
         v = torch.einsum("Zd,dhwc->Zhwc", ws[0], v)
@@ -89,12 +132,14 @@ def _separable_core(data, coeffs, out_shape, interp=LINEAR, fill=0.0,
 
 
 def _affine_core(data, matrix, out_shape, interp=LINEAR, fill=0.0, z_chunk=8,
-                 out_dtype=None):
+                 out_dtype=None, lo=(0, 0, 0), size=None):
     squeeze = data.dim() == 3
     if squeeze:
         data = data[..., None]
     dz, dy, dx = out_shape
-    sz, sy, sx = data.shape[:3]
+    sz, sy, sx = size or data.shape[:3]
+    lz, ly, lx = lo
+    hz, hy, hx = (a + n - 1 for a, n in zip(lo, data.shape[:3]))
     dev = data.device
     x32 = data.to(torch.float32)
     m = torch.as_tensor(matrix, dtype=torch.float32, device=dev)
@@ -112,8 +157,8 @@ def _affine_core(data, matrix, out_shape, interp=LINEAR, fill=0.0, z_chunk=8,
                  & (cz >= 0) & (cz <= sz - 1.0))
 
         def gather(zi, yi, xi):
-            return x32[zi.clamp(0, sz - 1), yi.clamp(0, sy - 1),
-                       xi.clamp(0, sx - 1)]  # [nz, dy, dx, C]
+            return x32[zi.clamp(lz, hz) - lz, yi.clamp(ly, hy) - ly,
+                       xi.clamp(lx, hx) - lx]  # [nz, dy, dx, C]
 
         if interp == NN:
             out = gather(torch.floor(cz + 0.5).long(), torch.floor(cy + 0.5).long(),
@@ -159,12 +204,16 @@ def resample_plan(src_frame: Frame, dst_frame: Frame, dst_size_xyz):
 
 
 def resample_exec(data: torch.Tensor, kind: str, coeffs, out_shape,
-                  interp: str = LINEAR, fill: float = 0.0, out_dtype=None):
-    """Execute a :func:`resample_plan` on ``data``'s device."""
+                  interp: str = LINEAR, fill: float = 0.0, out_dtype=None,
+                  box: SourceBox | None = None):
+    """Execute a :func:`resample_plan` on ``data``'s device; given ``box``,
+    ``data`` is only that part of the volume."""
+    lo, size = (box.lo, box.size) if box is not None else ((0, 0, 0), None)
     if kind == "sep":
-        return _separable_core(data, coeffs, out_shape, interp, fill, out_dtype)
+        return _separable_core(data, coeffs, out_shape, interp, fill, out_dtype,
+                               lo, size)
     return _affine_core(data, coeffs, out_shape, interp, fill,
-                        out_dtype=out_dtype)
+                        out_dtype=out_dtype, lo=lo, size=size)
 
 
 def resample_to_frame(data: torch.Tensor, src_frame: Frame, dst_frame: Frame,
@@ -179,11 +228,13 @@ def resample_to_frame(data: torch.Tensor, src_frame: Frame, dst_frame: Frame,
 
 def crop_at_world_center(data: torch.Tensor, frame: Frame, center_world,
                          out_size_xyz, out_spacing_xyz, interp: str = LINEAR,
-                         fill: float = 0.0):
+                         fill: float = 0.0, box: SourceBox | None = None):
     """Fixed-spacing crop of ``out_size_xyz`` voxels centred on a physical
-    point, keeping ``frame``'s direction. Returns ``(tensor, crop_frame)``."""
+    point, keeping ``frame``'s direction. Returns ``(tensor, crop_frame)``.
+    Given this crop's :func:`source_box`, ``data`` is only that box of the
+    volume, and the crop is the same."""
     crop_frame = frame_for_crop(frame, center_world, out_size_xyz,
                                 out_spacing_xyz)
-    out = resample_to_frame(data, frame, crop_frame, out_size_xyz,
-                            interp=interp, fill=fill)
+    kind, coeffs, out_shape = resample_plan(frame, crop_frame, out_size_xyz)
+    out = resample_exec(data, kind, coeffs, out_shape, interp, fill, box=box)
     return out, crop_frame

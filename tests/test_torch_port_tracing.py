@@ -21,6 +21,7 @@ import torch
 from torch.autograd.profiler import record_function
 from torch.profiler import ProfilerActivity, profile
 
+from crop_boxes import box_voxels
 from phantoms import make_sphere_case, make_train_list, write_train_config
 from segmentation3d_tpu_torch.core import seg_infer, seg_train
 from segmentation3d_tpu_torch.core.seg_infer import prepare_cases, segmentation
@@ -343,11 +344,19 @@ def _losses(root, name):
 def test_train_counts_the_crops_its_cache_misses(train_data, monkeypatch, cache_gb):
     root, data = train_data
     tag = "nocache" if cache_gb == 0.0 else "cache"
-    if cache_gb is not None:
-        monkeypatch.setattr(seg_train, "SegmentationDataset", functools.partial(
-            SegmentationDataset, device_cache_gb=cache_gb))
+    crops = []
+
+    class Recorded(SegmentationDataset):
+        def __getitem__(self, idx):
+            item = super().__getitem__(idx)
+            crops.append((self.cases[idx], item[2]))
+            return item
+
+    monkeypatch.setattr(seg_train, "SegmentationDataset", functools.partial(
+        Recorded, **({} if cache_gb is None else dict(device_cache_gb=cache_gb))))
     off, on = {}, {}
     seg_train.train(_train_config(root, f"{tag}_off", data), gpu_id=-1, stats=off)
+    crops.clear()
     with _profiled():
         seg_train.train(_train_config(root, f"{tag}_on", data), gpu_id=-1, stats=on)
     taken = tracing.take()
@@ -365,9 +374,11 @@ def test_train_counts_the_crops_its_cache_misses(train_data, monkeypatch, cache_
     (point,) = _by(taken.spans, name="train.save_point")
     assert on["save_point_seconds"] == [point.seconds]
     if cache_gb == 0.0:
-        crops = 3 * 2  # every case is 24 x 26 x 22: float32 voxels, int32 labels
-        assert taken.counters["train.stage_miss"] == crops
-        assert taken.counters["train.stage_bytes"] == crops * 2 * 4 * 24 * 26 * 22
+        # each miss uploads its crop's source box: float32 voxels, int32 labels
+        assert taken.counters["train.stage_miss"] == len(crops) == 3 * 2
+        assert taken.counters["train.stage_bytes"] == sum(
+            4 * box_voxels(v.frame, v.data.shape, frame, (16, 16, 16))
+            for case, frame in crops for v in (case.images[0], case.seg))
     else:
         assert "train.stage_miss" not in taken.counters
         assert "train.stage_bytes" not in taken.counters

@@ -11,6 +11,7 @@ labels equal. Noise: the port draws it from its own ``torch.Generator``
 (the JAX package from a PRNG key), so only its statistics are held, and the
 next crop's centre must still be JAX's.
 """
+import itertools
 import os
 import subprocess
 import sys
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from crop_boxes import box_bounds, box_voxels
 from phantoms import make_sphere_case, write_train_config
 from segmentation3d_tpu.dataloader.dataset import SegmentationDataset as JaxDataset
 from segmentation3d_tpu.ops.elastic import elastic_warp as jax_elastic
@@ -29,9 +31,12 @@ from segmentation3d_tpu.ops.resample import crop_at_world_center as jax_crop
 from segmentation3d_tpu.utils import normalizer as jax_norm
 from segmentation3d_tpu_torch.dataloader.dataset import SegmentationDataset
 from segmentation3d_tpu_torch.ops.elastic import dense_field, elastic_warp
-from segmentation3d_tpu_torch.ops.geometry import Frame
-from segmentation3d_tpu_torch.ops.resample import crop_at_world_center
+from segmentation3d_tpu_torch.ops.geometry import Frame, frame_for_crop
+from segmentation3d_tpu_torch.ops.resample import (
+    _compose_dst_to_src, crop_at_world_center, resample_exec, source_box)
 from segmentation3d_tpu_torch.utils import normalizer as port_norm
+from segmentation3d_tpu_torch.utils import tracing
+from torch.profiler import ProfilerActivity, profile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -69,6 +74,85 @@ def test_crop_at_world_center_matches_jax(rotated, interp):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     else:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def _box_centres(frame, size_zyx, rng):
+    """Source-index centres on each axis inside, straddling either face and
+    wholly outside (every mix of them: faces, edges, corners), jittered."""
+    top = np.asarray(size_zyx, np.float64)[::-1] - 1.0
+    for fx, fy, fz in itertools.product((0.5, 0.0, 1.0, -1.0, 2.0), repeat=3):
+        idx = np.array([fx, fy, fz]) * top + rng.uniform(-1.0, 1.0, 3)
+        yield frame.index_to_world(idx)
+
+
+@pytest.mark.parametrize("path", ["axis", "rotated", "rotated_gather"])
+@pytest.mark.parametrize("interp", ["LINEAR", "NN"])
+def test_box_crop_equals_the_whole_volume_crop(path, interp):
+    """A crop read from its source box, against the same crop of the whole
+    volume: labels (NN) bit for bit, images within float32 summation order.
+    ``rotated_gather`` runs the rotated crop through the gather core."""
+    rng = np.random.default_rng(3)
+    shape, size, spacing = (14, 15, 16), (8, 9, 10), (1.0, 1.1, 0.9)
+    data = rng.normal(size=shape).astype(np.float32)
+    if interp == "NN":
+        data = rng.integers(0, 3, size=shape).astype(np.int32)
+    whole = torch.from_numpy(data)
+    frame = Frame.identity((1.2, 0.8, 1.5)) if path == "axis" else _rotated(Frame)
+    for center in _box_centres(frame, shape, rng):
+        box = source_box(frame, shape, center, size, spacing)
+        crop_frame = frame_for_crop(frame, center, size, spacing)
+        lo, hi = box_bounds(frame, shape, crop_frame, size)
+        assert (box.lo, box.hi) == (tuple(lo), tuple(hi))
+        part = whole[box.slices]
+        if path == "rotated_gather":
+            m = np.asarray(_compose_dst_to_src(frame, crop_frame)[:3], np.float32)
+            want = resample_exec(whole, "aff", m, size[::-1], interp)
+            got = resample_exec(part, "aff", m, size[::-1], interp, box=box)
+        else:
+            want, _ = crop_at_world_center(whole, frame, center, size, spacing, interp)
+            got, _ = crop_at_world_center(part, frame, center, size, spacing, interp,
+                                          box=box)
+        assert got.dtype == want.dtype
+        if interp == "NN":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def big_case(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("big"))
+    return [make_sphere_case(d, "big", shape_zyx=(40, 56, 52),
+                             spacing=(1.1, 0.9, 1.3), seed=4)]
+
+
+def _stage_run(big_case, cache_gb):
+    ims, segs = [c[0] for c in big_case], [c[1] for c in big_case]
+    ds = SegmentationDataset(
+        (ims, segs), num_classes=2, spacing=(1.0, 1.0, 1.0), crop_size=(16, 16, 12),
+        sampling_method="MIX", random_translation=(30.0, 30.0, 30.0), seed=9,
+        device_cache_gb=cache_gb, crop_normalizers=[port_norm.FixedNormalizer(
+            mean=0.0, stddev=200.0, clip=False)])
+    tracing.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        batch = ds.batch([0] * 6)
+    return ds, batch, tracing.take().counters
+
+
+def test_a_cache_miss_uploads_only_the_source_box(big_case):
+    ds0, (im0, seg0, frames, _), counted = _stage_run(big_case, 0.0)
+    case = ds0.cases[0]
+    boxes = [box_voxels(v.frame, v.data.shape, f, (16, 16, 12))
+             for f in frames for v in (case.images[0], case.seg)]
+    assert counted["train.stage_miss"] == 6
+    assert counted["train.stage_bytes"] == 4 * sum(boxes)
+    assert max(boxes) * 8 < case.nbytes
+    ds1, (im1, seg1, frames1, _), resident = _stage_run(big_case, 10.0)
+    assert "train.stage_miss" not in resident and "train.stage_bytes" not in resident
+    assert ds1.cases[0].dev_images is not None
+    assert [f.origin.tolist() for f in frames1] == [f.origin.tolist() for f in frames]
+    torch.testing.assert_close(im1, im0, rtol=1e-6, atol=1e-6)
+    assert torch.equal(seg1, seg0)
 
 
 def test_elastic_warp_matches_jax():

@@ -30,7 +30,8 @@ TF32 off. ``quant="int8"`` runs the int8 forward (:mod:`..models.quant_vnet`)
 on whichever device was resolved: the kernels on a CUDA device, their plain
 versions on the CPU. A bottleneck net (``vbnet``) has neither folded form:
 it runs the ``nn.Module`` forward, and ``quant`` raises, as in the JAX
-package. ``model_dir`` may name several models: an ensemble whose class
+package; so does SwinUNETR (``swin_unetr``, which the JAX package lacks).
+``model_dir`` may name several models: an ensemble whose class
 probabilities are averaged on the device before the argmax.
 
 Loaded models, their forwards and the inferers are kept across calls in a
@@ -238,10 +239,8 @@ def module_forward(net, dtype):
 
 
 def _foldable(model: SegModel) -> bool:
-    """Whether the net has the folded forms: not a bottleneck net, and an
-    activation the kernel's epilogue applies (not leaky_relu)."""
-    from segmentation3d_tpu_torch.models.fused_vnet import FOLDED_ACTS
-    return not model.net.bottleneck and model.net.act in FOLDED_ACTS
+    """Whether the net says it has the folded forms (``net.foldable``)."""
+    return bool(getattr(model.net, "foldable", False))
 
 
 def build_forward(model: SegModel, dtype, device, fused=None, quant=None,
@@ -250,10 +249,10 @@ def build_forward(model: SegModel, dtype, device, fused=None, quant=None,
     ``model.net`` is): the int8 forward (``quant``, with the activation
     maxima ``calib`` when measured, see :func:`_calibrate_for_model`), else
     the BN-folded kernel forward (``fused``; default: bf16 on a CUDA
-    device), else the ``nn.Module`` forward. A bottleneck net, or one
-    whose activation the kernel's epilogue lacks (leaky_relu), has no
-    folded form: it runs the module forward, and ``quant`` raises the JAX
-    package's error."""
+    device), else the ``nn.Module`` forward. A net that says it has no
+    folded form (``net.foldable``: a bottleneck net, an activation the
+    kernel's epilogue lacks, SwinUNETR) runs the module forward, and
+    ``quant`` raises the JAX package's error."""
     if not _foldable(model):
         if quant is not None:
             raise ValueError(

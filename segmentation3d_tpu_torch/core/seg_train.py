@@ -67,7 +67,7 @@ import torch.distributed as dist
 from segmentation3d_tpu_torch.config import load_config
 from segmentation3d_tpu_torch.dataloader import EpochConcateSampler, SegmentationDataset
 from segmentation3d_tpu_torch.losses import create_loss
-from segmentation3d_tpu_torch.models import get_network_module
+from segmentation3d_tpu_torch.models import get_network_module, trainable
 from segmentation3d_tpu_torch.models.vnet import (distribute_, init_like_flax_,
                                                   vnet_focal_init)
 from segmentation3d_tpu_torch.parallel import distributed
@@ -82,6 +82,15 @@ from segmentation3d_tpu_torch.utils.file_io import setup_logger
 #: completed one wipes these and refuses to wipe anything else
 RUN_FILES = {"checkpoints", "train_log.txt", "train_loss.csv", "debug",
              "train_loss.png", "val_dice.csv", "val_dice.png"}
+
+
+def _check_trainable(cfg):
+    """Refuse a net whose module says it cannot be trained here."""
+    name = (cfg.get("net") or {}).get("name")
+    if name is not None and not trainable(name):
+        raise NotImplementedError(
+            f"training {name!r} is not supported yet: the port runs it "
+            "for inference only (seg_infer, seg_serve)")
 
 
 def _prepare_save_dir(save_dir: str, resume: bool):
@@ -358,6 +367,7 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
     device), and per save point ``save_point_seconds`` (checkpoint +
     validation) and ``validation_seconds``."""
     cfg = load_config(config_file)
+    _check_trainable(cfg)
     dev = resolve_device(device, gpu_id)
     stats = {} if stats is None else stats
     world, rank = distributed.process_count(), distributed.process_index()
@@ -688,6 +698,7 @@ def train_ranks(config_file: str, gpu_id: int = 0, stats: dict | None = None):
             return train(config_file, device=device, stats=stats)
         finally:
             distributed.shutdown()
+    _check_trainable(load_config(config_file))
     n = spawn_count(config_file, gpu_id)
     if n > 1:
         import torch.multiprocessing as mp

@@ -1,11 +1,12 @@
 """Model registry: checkpoints name their network (``payload['net']``), and
-a model module exposes ``SegmentationNet`` and ``max_stride()``: ``"vnet"`` and ``"vbnet"`` (its
-bottleneck variant)."""
+a model module exposes ``SegmentationNet`` and ``max_stride()``, and ``TRAINABLE = False``
+where ``seg_train`` cannot train it: ``"vnet"``, ``"vbnet"`` (its bottleneck variant) and
+``"swin_unetr"`` (inference only)."""
 from __future__ import annotations
 
 import importlib
 
-_PORTED = ("vnet", "vbnet")
+_PORTED = ("vnet", "vbnet", "swin_unetr")
 
 
 def get_network_module(name: str):
@@ -20,6 +21,11 @@ def create_network(name: str, in_channels: int, out_channels: int, **kwargs):
     """A new ``SegmentationNet`` of the network ``name``."""
     mod = get_network_module(name)
     return mod.SegmentationNet(in_channels=in_channels, out_channels=out_channels, **kwargs)
+
+
+def trainable(name: str) -> bool:
+    """Whether ``seg_train`` trains the network ``name`` (its module's ``TRAINABLE``)."""
+    return getattr(get_network_module(name), "TRAINABLE", True)
 
 
 def max_stride_of(name: str) -> int:

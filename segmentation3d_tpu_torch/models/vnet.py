@@ -366,6 +366,14 @@ class SegmentationNet(nn.Module):
     def max_stride(self) -> int:
         return 2 ** len(self.down_convs)
 
+    @property
+    def foldable(self) -> bool:
+        """Whether the BN-folded and int8 forwards apply: not a bottleneck
+        net, and an activation the kernel's epilogue applies (not
+        leaky_relu)."""
+        from segmentation3d_tpu_torch.models.fused_vnet import FOLDED_ACTS
+        return not self.bottleneck and self.act in FOLDED_ACTS
+
     def _block(self, block, *args):
         """``block(*args)``; with ``remat`` in training, only its inputs are
         kept for backward and its forward runs again there, its BatchNorm

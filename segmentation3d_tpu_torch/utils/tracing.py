@@ -67,6 +67,20 @@ _counters: dict = {}
 _offset = [None]
 
 
+def _clock_offset() -> int:
+    """``time.time_ns() - time.perf_counter_ns()``, read between two
+    ``perf_counter_ns`` reads, of the closest pair of five tries: a thread
+    switch between two reads would shift every mapped span by its length."""
+    best = None
+    for _ in range(5):
+        p0 = time.perf_counter_ns()
+        t = time.time_ns()
+        p1 = time.perf_counter_ns()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, t - (p0 + p1) // 2)
+    return best[1]
+
+
 def enabled() -> bool:
     """Whether a profiler is recording, in any thread of the process."""
     return _profiler._is_profiler_enabled
@@ -124,6 +138,9 @@ class Span:
     def start(self, annotate=False):
         if _profiler._is_profiler_enabled:  # the one read while tracing is off
             self._open(annotate)
+        # after the profiler's event opens, as ``end`` reads before it closes:
+        # the span lies inside its event. The profiler's op releases the GIL,
+        # so this read may wait out another thread's turn (milliseconds).
         self.t0 = time.perf_counter_ns()
         return self
 
@@ -131,7 +148,7 @@ class Span:
         if _offset[0] is None:
             with _lock:
                 if _offset[0] is None:
-                    _offset[0] = time.time_ns() - time.perf_counter_ns()
+                    _offset[0] = _clock_offset()
         self.id = new_ids()
         self._thread = threading.get_native_id(), threading.current_thread().name
         here = self.within or context()

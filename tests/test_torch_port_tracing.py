@@ -401,13 +401,19 @@ def test_profile_dir_trace_holds_the_prefetcher_spans(train_data):
     assert names[batches[0]["tid"]] == "batch-prefetch"
     assert {e["name"] for e in events if e.get("cat") == "program_span"} >= {
         "train.step", "train.batch_wait", "train.batch", "train.save_point"}
-    # on the trace's clock: the loop's spans start within 1 ms of the
-    # profiler's own events of the same name
+    # on the trace's clock, to 1 ms: each of the loop's spans lies inside
+    # the profiler's own event of the same name (the span reads its clock
+    # after the event opens and before it closes; the profiler's op
+    # releases the GIL, so a start may lag by another thread's turn, 1.1-6.9
+    # ms in 12 of 90 runs under six parallel processes), and the closest
+    # starts meet, which holds the clock offset
     for name in ("train.step", "train.batch_wait"):
-        ours = sorted(e["ts"] for e in events
+        ours = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                       if e.get("cat") == "program_span" and e["name"] == name)
-        theirs = sorted(e["ts"] for e in events
+        theirs = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                         if e.get("cat") == "user_annotation" and e["name"] == name)
         assert len(ours) == len(theirs) >= 3
-        assert max(abs(a - b) for a, b in zip(ours, theirs)) < 1e3
+        assert all(t0 - 1e3 <= o0 <= o1 <= t1 + 1e3
+                   for (o0, o1), (t0, t1) in zip(ours, theirs)), (ours, theirs)
+        assert min(abs(o0 - t0) for (o0, _), (t0, _) in zip(ours, theirs)) < 1e3
     assert "programCounters" in trace

@@ -16,14 +16,31 @@ accumulators of its own on its device (the volume is copied once to each
 distinct device), and the first device adds them up in shard order, the
 counterpart of the JAX engine's one ``psum``. Sharding one volume in z
 lives in :mod:`.spatial_shard`.
+
+A forward that says it can be captured (its attribute ``capturable``, which
+:func:`..models.fused_vnet.build_fused_forward` sets on a CUDA device) runs
+from CUDA graphs on a CUDA device: one graph per device and batch shape
+holds the batch's weighted probabilities (the forward, its flips, the
+multiply by the weight map); each batch is copied into the graph's static
+input and replays it (:class:`_DeviceGraphs`). The same ops run in the
+same order as eagerly, so the outputs are the same, and the host enqueues
+one replay instead of the forward's ops. Every other forward, and every
+CPU forward, runs eagerly. Counters (while tracing): ``infer.graph_captures``,
+``infer.graph_replays`` (batches replayed) and ``infer.graph_eager``
+(batches run eagerly).
 """
 from __future__ import annotations
+
+import collections
+import threading
 
 import numpy as np
 import torch
 
+from segmentation3d_tpu_torch.ops import thin_conv
 from segmentation3d_tpu_torch.ops.geometry import partition_boxes
 from segmentation3d_tpu_torch.parallel.devices import ShardStreams
+from segmentation3d_tpu_torch.utils import tracing
 from segmentation3d_tpu_torch.utils.device import no_tf32, resolve_device
 
 
@@ -74,6 +91,96 @@ def tta_flip_combos(axes):
     return tuple(combos)
 
 
+#: torch.cuda.graphs allows one capture at a time in a process; the
+#: shards' threads of a sharded call may each reach their first capture
+_CAPTURE = threading.Lock()
+
+
+def _capture(fn, inp, pool, stream):
+    """``(graph, out, launches)``: ``out = fn(inp)`` captured into a CUDA
+    graph on ``stream`` in ``pool``, and the kernel launches the capture
+    recorded (:func:`..ops.thin_conv.recorded_launches`). ``fn`` has run
+    eagerly before (the shape's first batch), so its lazy state is made.
+
+    The capture mode is ``"thread_local"``: the read-ahead's and the
+    writer's threads keep copying and synchronizing on their own streams
+    meanwhile, which ``"global"`` would count against the capture."""
+    graph = torch.cuda.CUDAGraph()
+    here = torch.cuda.current_stream(inp.device)
+    stream.wait_stream(here)
+    with _CAPTURE, torch.cuda.device(inp.device), torch.cuda.stream(stream):
+        before = thin_conv.recorded_launches()
+        graph.capture_begin(pool, capture_error_mode="thread_local")
+        try:
+            out = fn(inp)
+        finally:
+            graph.capture_end()
+        launches = thin_conv.recorded_launches() - before
+    here.wait_stream(stream)
+    return graph, out, launches
+
+
+#: one batch shape's graph: its static input and output, and the kernel
+#: launches each replay makes
+_Graph = collections.namedtuple("_Graph", "inp graph out launches")
+
+
+class _DeviceGraphs:
+    """An inferer's batch graphs on one CUDA device, one per batch shape.
+
+    A shape's first batch runs eagerly: it makes the forward's lazy state
+    (the kernels' builds and plans, cuDNN's and cuBLAS's handles) outside
+    any graph, and a forward that sees one batch of a shape (validation's
+    whole-volume patch, a one-slab case) is never captured. Its second
+    batch captures the graph (:func:`_capture`), its static input the
+    stack of the batch's slices; it and every later batch of the shape are
+    copied into that input and replay the graph, which adds the launches
+    its capture recorded to ``thin_conv3d.launches``. Each batch runs once,
+    eagerly or replayed, so a case launches what it launched without graphs.
+
+    The capture stream is one of the high-priority streams, which no other
+    code of the port takes: torch hands out its pooled streams round-robin,
+    and a read-ahead's or writer's stream that came out as the capture
+    stream would have its copies captured into the graph.
+
+    The graphs share one memory pool and one capture stream. Sharing is
+    safe because each graph's output stays referenced here, so no other
+    capture is handed its memory, and what the graphs do share, their
+    intermediates, is dead once a replay ends: every replay and the paste
+    that reads its output run in stream order, on the stream that was
+    current at the replay, and a replay on another stream than the last
+    one first waits for that stream."""
+
+    def __init__(self, device):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device, priority=-1)
+        self.graphs = {}  # batch shape -> _Graph; None after its first batch
+        self.last = None  # the stream of the last replay
+
+    def run(self, fn, slices):
+        """``fn`` of the stacked ``slices`` from the shape's graph, or None
+        where the batch has to run eagerly (the shape's first)."""
+        key = (len(slices), slices[0].dtype) + tuple(slices[0].shape)
+        if key not in self.graphs:
+            self.graphs[key] = None
+            return None
+        here = torch.cuda.current_stream(slices[0].device)
+        if self.last is not None and self.last != here:
+            here.wait_stream(self.last)
+        self.last = here
+        g = self.graphs[key]
+        if g is None:
+            inp = torch.stack(slices)
+            g = self.graphs[key] = _Graph(inp, *_capture(fn, inp, self.pool, self.stream))
+            tracing.count("infer.graph_captures")
+        else:
+            torch.stack(slices, out=g.inp)
+        g.graph.replay()
+        thin_conv.thin_conv3d.launches += g.launches
+        tracing.count("infer.graph_replays")
+        return g.out
+
+
 class SlidingWindowInferer:
     """Whole-volume inference: partition -> batched forward -> blend.
 
@@ -102,6 +209,8 @@ class SlidingWindowInferer:
         self.devices = [resolve_device(d) for d in devices] \
             if devices is not None and len(devices) > 1 else None
         self._streams = ShardStreams(self.devices) if self.devices else None
+        self._weights = {}  # device -> the weight map there
+        self._graphs = {}  # CUDA device -> _DeviceGraphs
 
     def boxes_for(self, vol_shape_zyx, stride_zyx=None):
         """Patch start coordinates (N,3) zyx for a volume shape."""
@@ -125,6 +234,24 @@ class SlidingWindowInferer:
             out = out / np.float32(1 + len(self._tta_flips))
         return out
 
+    def _weight(self, device):
+        """The weight map [pd,ph,pw,1] on ``device``, built once."""
+        w = self._weights.get(device)
+        if w is None:
+            w = self._weights[device] = torch.from_numpy(
+                make_weight_map(self.patch_size, self.blend)).to(device)
+        return w
+
+    def _graphs_on(self, forward, device):
+        """The :class:`_DeviceGraphs` of ``device``, or None where batches
+        run eagerly (a CPU device, a forward not marked ``capturable``)."""
+        if device.type != "cuda" or not getattr(forward, "capturable", False):
+            return None
+        graphs = self._graphs.get(device)
+        if graphs is None:
+            graphs = self._graphs[device] = _DeviceGraphs(device)
+        return graphs
+
     def _accumulators(self, vol):
         """Zero ``prob [D,H,W,NC]`` and ``wsum [D,H,W,1]`` on ``vol``'s device."""
         shape = tuple(vol.shape[:3])
@@ -137,13 +264,20 @@ class SlidingWindowInferer:
         probabilities into ``prob``/``wsum``, on ``vol``'s device."""
         pd, ph, pw = self.patch_size
         forward = self._forward_on(vol.device)
-        weight = torch.from_numpy(make_weight_map(self.patch_size, self.blend)).to(vol.device)
+        weight = self._weight(vol.device)
+        graphs = self._graphs_on(forward, vol.device)
+
+        def weighted(patches):
+            return self._forward(forward, patches) * weight
         for bxs in batches:
-            patches = torch.stack([vol[z:z + pd, y:y + ph, x:x + pw]
-                                   for z, y, x in bxs.tolist()])
-            probs = self._forward(forward, patches)
-            for (z, y, x), p in zip(bxs.tolist(), probs):
-                prob[z:z + pd, y:y + ph, x:x + pw] += p * weight
+            starts = bxs.tolist()
+            slices = [vol[z:z + pd, y:y + ph, x:x + pw] for z, y, x in starts]
+            out = graphs.run(weighted, slices) if graphs is not None else None
+            if out is None:
+                tracing.count("infer.graph_eager")
+                out = weighted(torch.stack(slices))
+            for (z, y, x), p in zip(starts, out):
+                prob[z:z + pd, y:y + ph, x:x + pw] += p
                 wsum[z:z + pd, y:y + ph, x:x + pw] += weight
 
     def _sharded(self, vol, batches):

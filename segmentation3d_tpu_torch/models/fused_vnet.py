@@ -13,6 +13,10 @@ into the conv's epilogue (:func:`thin_conv3d`):
 - the 2^3/s2 down conv, the 2^3/s2 transposed conv, the skip concat, the
   1x1 projection and the float32 softmax stay torch ops.
 
+On a CUDA device the forward (not the ``stats`` one) is marked
+``capturable``: :class:`..core.infer_engine.SlidingWindowInferer` replays it
+from a CUDA graph.
+
 ``stats=True`` is the measuring side of int8 calibration
 (``models/quant_vnet.py:calibrate_int8``): the forward also returns each
 activation site's ``max|a|`` under the JAX package's site keys.
@@ -222,4 +226,7 @@ def build_fused_forward(net: SegmentationNet, dtype=torch.bfloat16,
         values = torch.stack(list(st.values())).tolist()
         return probs, dict(zip(st, values))
 
+    # fixed addresses, no host sync, no host-side state between calls: the
+    # engine may replay a batch shape's forward from a CUDA graph
+    forward.capturable = not stats and device.type == "cuda"
     return forward

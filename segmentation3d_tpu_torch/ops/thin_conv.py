@@ -11,10 +11,16 @@ and loaded with ``ctypes``, :mod:`.cuda_build`) or raises: sites with
 weights repacked by :mod:`.conv_plan`, the others its direct path. On a
 CPU tensor it runs :func:`thin_conv3d_reference`, the plain PyTorch
 version of the same function. :func:`fold_bn_np` folds inference BatchNorm into the conv.
+
+``thin_conv3d.launches`` counts the kernel's launches that run. A call made
+while the current stream captures a CUDA graph runs nothing: it counts in
+:func:`recorded_launches` instead, and whoever replays the graph adds what
+its capture recorded to ``thin_conv3d.launches`` at each replay.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -168,9 +174,26 @@ def thin_conv3d(x, w, b=None, act: str = "none", alpha: float = 0.25,
                 B, D, H, W, cin, cout, *args, stream)
     if err != 0:
         raise RuntimeError(f"thin_conv3d kernel launch failed: CUDA error {err}")
-    thin_conv3d.launches += 1
+    count_launch()
     return out
 
 
 #: kernel launches so far (incremented only where the kernel is launched)
 thin_conv3d.launches = 0
+
+_recorded = threading.local()
+
+
+def count_launch():
+    """Count one launch of the kernel: in ``thin_conv3d.launches``, or, while
+    this thread's current stream captures a CUDA graph (nothing runs), in
+    this thread's :func:`recorded_launches`."""
+    if torch.cuda.is_current_stream_capturing():
+        _recorded.n = recorded_launches() + 1
+    else:
+        thin_conv3d.launches += 1
+
+
+def recorded_launches() -> int:
+    """The launches this thread has recorded into CUDA graph captures."""
+    return getattr(_recorded, "n", 0)

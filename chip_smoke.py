@@ -1015,8 +1015,8 @@ def phase_shard(torch, tc, wi, ctx, gpu):
     frame, grid = resampled_frame(vol.frame, vol.size_xyz, model.spacing, 64)
     iso = prep_channels(model, [vol], None, frame, grid, valid, 0.0, dev)
     del vol
-    fwd = {"bf16": build_forward(model, torch.bfloat16, dev),
-           "int8": build_forward(model, torch.bfloat16, dev, quant="int8")}
+    fwd = {"bf16": build_forward(model.net, torch.bfloat16, dev),
+           "int8": build_forward(model.net, torch.bfloat16, dev, quant="int8")}
 
     def engine_gap(f, n):
         """Largest probability gap and voxels differing between the SIZE

@@ -247,7 +247,7 @@ def _build_c2f_session(coarse_model_dir, fine_model_dirs, dtype, patch,
         blend=blend if stride_eff != patch_eff else "constant", tta=tta,
         devices=devices)
         for f in fines]
-    return {"coarse": coarse, "coarse_forward": build_forward(coarse, dtype, device),
+    return {"coarse": coarse, "coarse_forward": build_forward(coarse.net, dtype, device),
             "coarse_inferers": {}, "fines": fines, "fine_inferers": fine_inferers,
             "patch": patch_eff, "stride": stride_eff}
 

@@ -238,37 +238,39 @@ def module_forward(net, dtype):
     return forward
 
 
-def _foldable(model: SegModel) -> bool:
-    """Whether the net says it has the folded forms (``net.foldable``)."""
-    return bool(getattr(model.net, "foldable", False))
+def _folds(fused, dtype, device) -> bool:
+    """Whether a foldable net runs its BN-folded kernel forward: ``fused``
+    when given, else bf16 on a CUDA device (the JAX package's rule for its
+    fused forward, bf16 off the CPU)."""
+    if fused is None:
+        return dtype == torch.bfloat16 and device.type == "cuda"
+    return bool(fused)
 
 
-def build_forward(model: SegModel, dtype, device, fused=None, quant=None,
-                  act_clip=8.0, calib=None):
-    """``patches -> probabilities`` for one model on ``device`` (where
-    ``model.net`` is): the int8 forward (``quant``, with the activation
-    maxima ``calib`` when measured, see :func:`_calibrate_for_model`), else
-    the BN-folded kernel forward (``fused``; default: bf16 on a CUDA
-    device), else the ``nn.Module`` forward. A net that says it has no
-    folded form (``net.foldable``: a bottleneck net, an activation the
-    kernel's epilogue lacks, SwinUNETR) runs the module forward, and
-    ``quant`` raises the JAX package's error."""
-    if not _foldable(model):
+def build_forward(net, dtype, device, fused=None, quant=None, act_clip=8.0,
+                  calib=None):
+    """``patches -> probabilities`` for ``net`` on ``device`` (where the net
+    is): the int8 forward (``quant``, with the activation maxima ``calib``
+    when measured, see :func:`_calibrate_for_model`), else the BN-folded
+    kernel forward (:func:`_folds`), else the ``nn.Module`` forward. A net
+    that says it has no folded form (``net.foldable``: a bottleneck net, an
+    activation the kernel's epilogue lacks, SwinUNETR) runs the module
+    forward, and ``quant`` raises the JAX package's error. The one place
+    that picks a forward: inference, coarse-to-fine and validation."""
+    if not net.foldable:
         if quant is not None:
             raise ValueError(
                 f"quant={quant!r} requires the packed-domain forward, which "
                 "this architecture does not support")
-        return module_forward(model.net, dtype)
+        return module_forward(net, dtype)
     if quant is not None:
         from segmentation3d_tpu_torch.models.quant_vnet import build_int8_forward
-        return build_int8_forward(model.net, act_clip=act_clip, calib=calib,
+        return build_int8_forward(net, act_clip=act_clip, calib=calib,
                                   dtype=dtype)
-    if fused is None:
-        fused = dtype == torch.bfloat16 and device.type == "cuda"
-    if fused:
+    if _folds(fused, dtype, device):
         from segmentation3d_tpu_torch.models.fused_vnet import build_fused_forward
-        return build_fused_forward(model.net, dtype=dtype)
-    return module_forward(model.net, dtype)
+        return build_fused_forward(net, dtype=dtype)
+    return module_forward(net, dtype)
 
 
 def build_forwards(model: SegModel, dtype, devices, fused=None, quant=None,
@@ -280,13 +282,13 @@ def build_forwards(model: SegModel, dtype, devices, fused=None, quant=None,
     first device, and every device's forward takes those maxima."""
     first, *rest = distinct(devices)
     calib = None
-    if quant is not None and calib_paths is not None and _foldable(model):
+    if quant is not None and calib_paths is not None and model.net.foldable:
         calib = _calibrate_for_model(model, calib_paths, dtype, first)
     models = {first: model}
     for dev in rest:
         models[dev] = copy.copy(model)
         models[dev].net = copy.deepcopy(model.net).to(dev)
-    return {dev: build_forward(m, dtype, dev, fused, quant, act_clip, calib)
+    return {dev: build_forward(m.net, dtype, dev, fused, quant, act_clip, calib)
             for dev, m in models.items()}
 
 
@@ -1099,8 +1101,7 @@ def segmentation(input_path, model_dir, output_dir, seg_name="seg.mha",
         _check_spatial_shard(spatial_shard, partition_type, devs, tta, model_dirs)
         if partition_type not in (DISABLE, SIZE, NUM, SLAB):
             raise NotImplementedError(f"partition_type {partition_type}")
-        if fused is None:
-            fused = dtype == torch.bfloat16 and dev.type == "cuda"
+        fused = _folds(fused, dtype, dev)  # resolved: the session key holds it
         sess = _session(model_dirs, checkpoint, dtype, devs, fused, quant,
                         act_clip, calib_paths, blend, batch_size,
                         partition_type, tta, spatial_shard)

@@ -494,7 +494,7 @@ def train(config_file: str, gpu_id: int = 0, device=None, stats: dict | None = N
 
     val_list = cfg.train.get("val_list", None)
     val_csv = os.path.join(save_dir, "val_dice.csv")
-    val_cache = {}  # the device case cache and fold state, run-lifetime
+    val_cache = {}  # the device case cache, run-lifetime
     save_best = bool(cfg.train.get("save_best", False))
     if save_best and not val_list:
         raise ValueError("cfg.train.save_best requires cfg.train.val_list")

@@ -12,13 +12,16 @@ region is scored (:meth:`SlidingWindowInferer.dice`), so 2 x (classes - 1)
 numbers per case cross to the host. The prepared volumes stay on the device
 across save points up to ``case_cache_gb``.
 
-The forward: under bf16 on a CUDA device, the BN-folded kernel forward
-(:func:`..models.fused_vnet.build_fused_forward`, every stride-1 3^3 conv
-through ``thin_conv3d``), folded again from the live weights at every save
-point. A net it refuses (bottleneck blocks, leaky_relu) runs the
-``nn.Module`` in eval mode from then on, as the JAX package falls back; a
-fold that fails after one succeeded propagates. Float32 runs the module
-with TF32 off. The net is in train mode again afterwards.
+The forward comes from :func:`..core.seg_infer.build_forward` at every
+save point, so validation folds where inference folds: a foldable net runs
+the BN-folded kernel forward (:func:`..models.fused_vnet.build_fused_forward`,
+every stride-1 3^3 conv through ``thin_conv3d``), folded again from the live
+weights; a net that says it has no folded form (``net.foldable``:
+bottleneck blocks, leaky_relu) runs the ``nn.Module`` in eval mode, as the
+JAX package falls back, and no fold is tried. A fold that fails on a
+foldable net propagates, at any save point, rather than scoring other
+weights. Float32 runs the module with TF32 off. The net is in train mode
+again afterwards.
 """
 from __future__ import annotations
 
@@ -31,38 +34,6 @@ from segmentation3d_tpu_torch.core.infer_engine import SlidingWindowInferer
 from segmentation3d_tpu_torch.io import read_image
 from segmentation3d_tpu_torch.ops.geometry import resampled_frame
 from segmentation3d_tpu_torch.ops.resample import NN, resample_exec, resample_plan
-
-
-def _fused_supported(net, dtype, device, use_fused):
-    """The folded forward runs for bf16 on a CUDA device (``seg_infer``'s
-    default rule) unless ``use_fused`` says otherwise."""
-    if use_fused is not None:
-        return bool(use_fused)
-    return dtype == torch.bfloat16 and device.type == "cuda"
-
-
-def _forward_for(net, dtype, state):
-    """The forward of this save point from the run-lifetime ``state``: the
-    folded forward re-folded from ``net``'s weights, or the module's when
-    the first fold was refused."""
-    from segmentation3d_tpu_torch.core.seg_infer import module_forward
-    from segmentation3d_tpu_torch.models.fused_vnet import build_fused_forward
-    if state.get("fused") is False:
-        return module_forward(net, dtype)
-    if "fused" not in state:
-        # only the FIRST fold may fail gracefully (an architecture without
-        # a folded form -> the module for the whole run)
-        try:
-            fwd = build_fused_forward(net, dtype=dtype)
-        except NotImplementedError:
-            state["fused"] = False
-            return module_forward(net, dtype)
-        state["fused"] = True
-        return fwd
-    # a later save point: a failure here is not a capability gap (the same
-    # fold succeeded before), so it propagates rather than scoring stale
-    # weights
-    return build_fused_forward(net, dtype=dtype)
 
 
 def _prepare_case(img_paths, seg_path, spacing, interpolation, norms,
@@ -97,19 +68,19 @@ def _prepare_case(img_paths, seg_path, spacing, interpolation, norms,
 def validate_cases(net, val_list, *, spacing, interpolation, normalizers,
                    num_classes, max_stride, shape_bucket=32, dtype=torch.float32,
                    inferer_cache=None, size_cap=256, slab_z=64,
-                   slab_overlap=16, use_fused=None, case_cache_gb=2.0):
+                   slab_overlap=16, case_cache_gb=2.0):
     """Run whole-volume inference with ``net`` (on its device) on every case
     of ``val_list`` (train-format txt or csv) and return ``(mean_dice,
     per_class_dice, n_cases)``: ``per_class_dice[c-1]`` is the mean Dice of
     class ``c`` over the cases, ``mean_dice`` their mean.
 
     ``inferer_cache``: a dict kept for the whole run (the device case cache
-    and the fold state live there). ``dtype``: bfloat16 or float32."""
+    lives there). ``dtype``: bfloat16 or float32."""
+    from segmentation3d_tpu_torch.core import seg_infer
     from segmentation3d_tpu_torch.dataloader.dataset import read_case_list
     if inferer_cache is None:
         inferer_cache = {}
     device = next(net.parameters()).device
-    fused = _fused_supported(net, dtype, device, use_fused)
     pad_mult = max(int(max_stride), int(shape_bucket or 0))
     norms = list(normalizers) if normalizers is not None else None
     ims, sgs = read_case_list(val_list)
@@ -118,12 +89,7 @@ def validate_cases(net, val_list, *, spacing, interpolation, normalizers,
     was_training = net.training
     net.eval()
     try:
-        if fused:
-            forward = _forward_for(net, dtype,
-                                   inferer_cache.setdefault("__fused__", {}))
-        else:
-            from segmentation3d_tpu_torch.core.seg_infer import module_forward
-            forward = module_forward(net, dtype)
+        forward = seg_infer.build_forward(net, dtype, device)
         per_case = []
         for img_paths, seg_path in zip(ims, sgs):
             ckey = (tuple(img_paths), seg_path)

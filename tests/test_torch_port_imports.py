@@ -38,7 +38,6 @@ MODULES = ["core.seg_infer", "core.infer_engine", "core.coarse_to_fine",
            "utils.plotting", "cli.seg_train",
            "native", "io.nrrd", "io.dicom", "io.jpeg_lossless",
            "utils.dicom_helper", "utils.metrics", "cli.seg_eval",
-           "tools.host_io_probe",
            "compat", "compat.torch_import", "cli.seg_convert", "core.serve",
            "cli.seg_serve", "utils.image_tools", "utils.flops", "seg_infer",
            "seg_train", "parallel", "parallel.devices", "parallel.distributed",

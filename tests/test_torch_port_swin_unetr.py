@@ -325,8 +325,6 @@ def test_build_forward_picks_the_same_forward(name, kw, dtype, fused, quant, bui
     if name != "swin_unetr":
         kw = dict(kw, base_channels=4, down_convs=(1, 2), up_convs=(2, 1))
     net = create_network(name, 1, 14 if name == "swin_unetr" else 2, **kw).eval()
-    model = seg_infer_core.SegModel(net, [1.0] * 3, net.max_stride(), "LINEAR", [], 1,
-                                    net.out_channels, name, 0)
-    forward = seg_infer_core.build_forward(model, dtype, torch.device("cpu"), fused=fused,
+    forward = seg_infer_core.build_forward(net, dtype, torch.device("cpu"), fused=fused,
                                            quant=quant)
     assert forward.__qualname__.split(".")[0] == builder

@@ -289,16 +289,21 @@ def test_more_devices_than_there_are_train_on_one(data):
 
 
 def test_validation_fold_rules(data, monkeypatch):
-    """The folded route (forced on the CPU, where thin_conv3d runs its plain
-    version): re-folded from the live weights at every save point; a net it
-    refuses (leaky_relu) runs the module from then on; a fold that fails
-    after one succeeded propagates."""
+    """The folded route (forced on the CPU through ``build_forward``'s
+    ``fused=True``, where thin_conv3d runs its plain version): re-folded
+    from the live weights at every save point; a net with no folded form
+    (leaky_relu) runs the module and no fold is tried; a fold that fails
+    propagates, at the first save point as at a later one."""
     import segmentation3d_tpu_torch.models.fused_vnet as fused
+    from segmentation3d_tpu_torch.core import seg_infer
     root, cases = data
     val = make_train_list(str(root / "val_fold.txt"), [cases[2]])
     kw = dict(spacing=[1.0, 1.0, 1.0], interpolation="LINEAR", num_classes=2,
               max_stride=4, normalizers=[AdaptiveNormalizer()],
-              dtype=torch.bfloat16, use_fused=True)
+              dtype=torch.bfloat16)
+    build = seg_infer.build_forward
+    monkeypatch.setattr(seg_infer, "build_forward",
+                        lambda net, dtype, device: build(net, dtype, device, fused=True))
     folds_built = []
     real = fused.build_fused_forward
 
@@ -312,17 +317,17 @@ def test_validation_fold_rules(data, monkeypatch):
     with torch.no_grad():
         relu_net.out_block.proj.bias.add_(torch.tensor([5.0, -5.0]))
     second = validate_cases(relu_net, val, inferer_cache=cache, **kw)
-    assert folds_built == ["relu", "relu"] and cache["__fused__"]["fused"]
+    assert folds_built == ["relu", "relu"]
     assert second[0] != first[0]  # the second save point scored the new weights
     _, leaky = seeded_variables("leaky_relu", seed=13)
     lcache = {}
     validate_cases(leaky, val, inferer_cache=lcache, **kw)
     validate_cases(leaky, val, inferer_cache=lcache, **kw)
-    assert lcache["__fused__"]["fused"] is False
-    assert folds_built == ["relu", "relu", "leaky_relu"]  # refused once, then the module
+    assert folds_built == ["relu", "relu"]  # the leaky_relu net never folds
 
     def broken(*a, **k):
         raise NotImplementedError("fold broke")
     monkeypatch.setattr(fused, "build_fused_forward", broken)
-    with pytest.raises(NotImplementedError, match="fold broke"):
-        validate_cases(relu_net, val, inferer_cache=cache, **kw)
+    for at in (cache, {}):  # a later save point, then a run's first
+        with pytest.raises(NotImplementedError, match="fold broke"):
+            validate_cases(relu_net, val, inferer_cache=at, **kw)

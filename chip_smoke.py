@@ -56,8 +56,8 @@ NVIDIA GPU:
 10. tta: ``--bf16 --tta all`` against float32 ``--tta all``;
 11. c2f: ``--fine_model`` with a seeded 4 mm coarse net, ``--bf16`` and
    ``--int8`` against float32;
-12. vbnet: a seeded full-width VB-Net, ``--bf16`` (the nn.Module, no kernel
-   launch) against float32;
+12. vbnet: a seeded full-width VB-Net, ``--bf16`` (its BN-folded forward, 16
+   thin_conv3d launches a batch) against float32;
 13. convert: 4's model written as the original PyTorch toolkit saves it
    (foreign names, no ``_kernel_layouts``); ``seg_infer --bf16`` through
    the positional importer, and on ``seg_convert``'s output, must each give
@@ -1288,10 +1288,15 @@ def phase_c2f(torch, tc, wi, ctx, gpu):
     ctx.update(coarse=coarse, c2f_bf16_mask=bf16["mask"], c2f_launches=thin)
 
 
+#: thin_conv3d launches per batch of the folded full-width VB-Net: the stem,
+#: the head and the 14 mid convs of 8, 32 and 64 channels (16: cuDNN)
+VBNET_PER_BATCH = 16
+
+
 def phase_vbnet(torch, tc, wi, ctx, gpu):
-    """A seeded full-width VB-Net: ``--bf16`` runs the nn.Module under
-    autocast, as the JAX package routes it (no kernel launch), against
-    float32 at the mask agreement bar."""
+    """A seeded full-width VB-Net: ``--bf16`` runs its BN-folded forward
+    (``VBNET_PER_BATCH`` thin_conv3d launches a batch, no window_conv_i8),
+    against float32 at the mask agreement bar. Returns its launch count."""
     import numpy as np
     from segmentation3d_tpu_torch.io import read_image
     run = ctx["run"]
@@ -1307,13 +1312,23 @@ def phase_vbnet(torch, tc, wi, ctx, gpu):
     emit("vbnet", launches=launches, **gaps, seconds=bf16["wall"],
          stages=bf16["stages"], f32_seconds=f32["wall"],
          max_memory_allocated=bf16["peak"], gpu=gpu)
-    check(launches == (0, 0), f"vbnet --bf16 launched {launches}: its route "
-          "is the nn.Module")
+    check(launches == (VBNET_PER_BATCH * ctx["n_batches"], 0),
+          f"vbnet --bf16 launched {launches}: expected "
+          f"({VBNET_PER_BATCH} x {ctx['n_batches']}, 0)")
     fg_body = gaps["foreground_fraction_of_body"]
     check(FG_BODY[0] <= fg_body <= FG_BODY[1],
           f"vbnet: foreground is {fg_body} of the body, outside {FG_BODY}")
     check(gaps["agreement"] >= AGREE_MIN,
           f"vbnet bf16/f32 agreement {gaps['agreement']} < {AGREE_MIN}")
+    # the earlier phases' sessions hold their CUDA graphs' pools and the
+    # float32 runs leave GBs cached that a later capture's pool cannot
+    # reuse: the next phases start from an empty cache
+    import gc
+    from segmentation3d_tpu_torch.core import seg_infer as si
+    si._SESSIONS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seg_infer --bf16 (vbnet)": launches[0]}
 
 
 def phase_convert(torch, tc, ctx, gpu):
@@ -2388,7 +2403,7 @@ def main():
         phase_ensemble(torch, tc, ctx, gpu)
         phase_tta(torch, tc, ctx, gpu)
         phase_c2f(torch, tc, wi, ctx, gpu)
-        phase_vbnet(torch, tc, wi, ctx, gpu)
+        launches_vbnet = phase_vbnet(torch, tc, wi, ctx, gpu)
         launches_convert = phase_convert(torch, tc, ctx, gpu)
         launches_serve, launches_serve_i8 = phase_serve(torch, tc, wi, ctx, gpu)
         phase_train_step(torch, gpu)
@@ -2396,7 +2411,8 @@ def main():
         launches_ddp = phase_train_ddp(torch, tc, wi, train_ctx, gpu)
 
     thin_paths = {"seg_infer --bf16": ctx["launches"], **launches_formats,
-                  **launches_shard, **launches_convert, **launches_serve,
+                  **launches_shard, **launches_vbnet, **launches_convert,
+                  **launches_serve,
                   "seg_train (validation)": launches_train,
                   "seg_train, 2 ranks (rank 0's validation)": launches_ddp}
     thin = kernel_entry("thin_conv3d", "segmentation3d_tpu_torch/csrc/thin_conv3d.cu",
@@ -2413,8 +2429,8 @@ def main():
     print(json.dumps({"kernels": [
         # 20 launches per bf16 forward: the main path (NIfTI, DICOM and NRRD
         # input, toolkit and converted checkpoints, served requests), the
-        # training path's validation; the epilogue variants' errors (int8 in
-        # steps) are on their own "kernel" lines
+        # training path's validation; 16 per VB-Net forward; the epilogue
+        # variants' errors (int8 in steps) are on their own "kernel" lines
         thin,
         # 19 launches per int8 forward: the int8 main path, served requests
         i8,

@@ -28,9 +28,10 @@ Under bf16 on a CUDA device the forward is the BN-folded kernel forward
 forward for bf16 off the CPU; float32 runs the ``nn.Module`` forward with
 TF32 off. ``quant="int8"`` runs the int8 forward (:mod:`..models.quant_vnet`)
 on whichever device was resolved: the kernels on a CUDA device, their plain
-versions on the CPU. A bottleneck net (``vbnet``) has neither folded form:
-it runs the ``nn.Module`` forward, and ``quant`` raises, as in the JAX
-package; so does SwinUNETR (``swin_unetr``, which the JAX package lacks).
+versions on the CPU. A bottleneck net (``vbnet``) folds too, which the JAX
+package's fused forward refuses, but has no int8 form: ``quant`` raises,
+as in the JAX package. SwinUNETR (``swin_unetr``, which the JAX package
+lacks) has neither: it runs the ``nn.Module`` forward, and ``quant`` raises.
 ``model_dir`` may name several models: an ensemble whose class
 probabilities are averaged on the device before the argmax.
 
@@ -247,21 +248,28 @@ def _folds(fused, dtype, device) -> bool:
     return bool(fused)
 
 
+def _quantizable(net) -> bool:
+    """Whether the int8 forward applies: a foldable net of standard blocks
+    (the JAX package's packed forward has no bottleneck form either)."""
+    return net.foldable and not net.bottleneck
+
+
 def build_forward(net, dtype, device, fused=None, quant=None, act_clip=8.0,
                   calib=None):
     """``patches -> probabilities`` for ``net`` on ``device`` (where the net
     is): the int8 forward (``quant``, with the activation maxima ``calib``
     when measured, see :func:`_calibrate_for_model`), else the BN-folded
-    kernel forward (:func:`_folds`), else the ``nn.Module`` forward. A net
-    that says it has no folded form (``net.foldable``: a bottleneck net, an
-    activation the kernel's epilogue lacks, SwinUNETR) runs the module
-    forward, and ``quant`` raises the JAX package's error. The one place
-    that picks a forward: inference, coarse-to-fine and validation."""
+    kernel forward (:func:`_folds`; V-Net's and VB-Net's), else the
+    ``nn.Module`` forward. A net that says it has no folded form
+    (``net.foldable``: an activation the kernel's epilogue lacks,
+    SwinUNETR) runs the module forward; ``quant`` on it or on a bottleneck
+    net (:func:`_quantizable`) raises the JAX package's error. The one
+    place that picks a forward: inference, coarse-to-fine and validation."""
+    if quant is not None and not _quantizable(net):
+        raise ValueError(
+            f"quant={quant!r} requires the packed-domain forward, which "
+            "this architecture does not support")
     if not net.foldable:
-        if quant is not None:
-            raise ValueError(
-                f"quant={quant!r} requires the packed-domain forward, which "
-                "this architecture does not support")
         return module_forward(net, dtype)
     if quant is not None:
         from segmentation3d_tpu_torch.models.quant_vnet import build_int8_forward
@@ -282,7 +290,7 @@ def build_forwards(model: SegModel, dtype, devices, fused=None, quant=None,
     first device, and every device's forward takes those maxima."""
     first, *rest = distinct(devices)
     calib = None
-    if quant is not None and calib_paths is not None and model.net.foldable:
+    if quant is not None and calib_paths is not None and _quantizable(model.net):
         calib = _calibrate_for_model(model, calib_paths, dtype, first)
     models = {first: model}
     for dev in rest:

@@ -13,15 +13,14 @@ numbers per case cross to the host. The prepared volumes stay on the device
 across save points up to ``case_cache_gb``.
 
 The forward comes from :func:`..core.seg_infer.build_forward` at every
-save point, so validation folds where inference folds: a foldable net runs
-the BN-folded kernel forward (:func:`..models.fused_vnet.build_fused_forward`,
-every stride-1 3^3 conv through ``thin_conv3d``), folded again from the live
-weights; a net that says it has no folded form (``net.foldable``:
-bottleneck blocks, leaky_relu) runs the ``nn.Module`` in eval mode, as the
-JAX package falls back, and no fold is tried. A fold that fails on a
-foldable net propagates, at any save point, rather than scoring other
-weights. Float32 runs the module with TF32 off. The net is in train mode
-again afterwards.
+save point, so validation folds where inference folds: a foldable net, with
+standard or bottleneck blocks, runs the BN-folded kernel forward
+(:func:`..models.fused_vnet.build_fused_forward`), folded again from the
+live weights; a net that says it has no folded form (``net.foldable``:
+leaky_relu) runs the ``nn.Module`` in eval mode, as the JAX package falls
+back, and no fold is tried. A fold that fails on a foldable net
+propagates, at any save point, rather than scoring other weights. Float32
+runs the module with TF32 off. The net is in train mode again afterwards.
 """
 from __future__ import annotations
 

@@ -368,11 +368,12 @@ class SegmentationNet(nn.Module):
 
     @property
     def foldable(self) -> bool:
-        """Whether the BN-folded and int8 forwards apply: not a bottleneck
-        net, and an activation the kernel's epilogue applies (not
-        leaky_relu)."""
+        """Whether the BN-folded forward applies: an activation the
+        kernel's epilogue applies (not leaky_relu), with standard or
+        bottleneck blocks. The int8 forward needs standard blocks too
+        (:func:`..core.seg_infer.build_forward`)."""
         from segmentation3d_tpu_torch.models.fused_vnet import FOLDED_ACTS
-        return not self.bottleneck and self.act in FOLDED_ACTS
+        return self.act in FOLDED_ACTS
 
     def _block(self, block, *args):
         """``block(*args)``; with ``remat`` in training, only its inputs are

@@ -124,12 +124,14 @@ def test_checkpoint_selection(tmp_path):
 
 
 def test_bottleneck_is_refused():
-    """The bottleneck net (vbnet) builds, but the folded forwards refuse it,
-    as the JAX package's fused and packed forwards do; it runs as the
-    nn.Module (tests/test_torch_port_vbnet.py)."""
+    """The bottleneck net (vbnet) builds and folds (the JAX package's fused
+    forward refuses it), but the int8 forward refuses it, as the JAX
+    package's packed forward does (tests/test_torch_port_vbnet.py)."""
     from segmentation3d_tpu_torch.models.fused_vnet import build_fused_forward
     from segmentation3d_tpu_torch.models.quant_vnet import build_int8_forward
-    net = SegmentationNet(1, 2, bottleneck=True, **KW)
-    for build in (build_fused_forward, build_int8_forward):
-        with pytest.raises(NotImplementedError):
-            build(net)
+    net = SegmentationNet(1, 2, bottleneck=True, **KW).eval()
+    assert net.foldable
+    probs = build_fused_forward(net, torch.float32)(torch.zeros((1, 16, 16, 16, 1)))
+    assert probs.shape == (1, 16, 16, 16, 2)
+    with pytest.raises(NotImplementedError):
+        build_int8_forward(net)

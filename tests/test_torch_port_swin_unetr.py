@@ -315,13 +315,13 @@ def test_seg_train_refuses_swin_unetr(tmp_path, entry):
     ("vnet", {"act": "prelu"}, torch.bfloat16, True, None, "build_fused_forward"),
     ("vnet", {}, torch.bfloat16, None, "int8", "build_int8_forward"),
     ("vnet", {"act": "leaky_relu"}, torch.bfloat16, True, None, "module_forward"),
-    ("vbnet", {}, torch.bfloat16, True, None, "module_forward"),
+    ("vbnet", {}, torch.bfloat16, True, None, "build_fused_forward"),
+    ("vbnet", {"act": "leaky_relu"}, torch.bfloat16, True, None, "module_forward"),
     ("swin_unetr", {"feature_size": 12}, torch.bfloat16, True, None, "module_forward"),
 ])
 def test_build_forward_picks_the_same_forward(name, kw, dtype, fused, quant, builder):
-    """Each net's forward as before the nets said whether they fold:
-    V-Net with relu or prelu folds, leaky_relu, VB-Net and SwinUNETR run
-    the module."""
+    """Each net's forward: V-Net and VB-Net with relu or prelu fold;
+    leaky_relu and SwinUNETR run the module."""
     if name != "swin_unetr":
         kw = dict(kw, base_channels=4, down_convs=(1, 2), up_convs=(2, 1))
     net = create_network(name, 1, 14 if name == "swin_unetr" else 2, **kw).eval()

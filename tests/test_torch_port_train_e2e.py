@@ -331,3 +331,31 @@ def test_validation_fold_rules(data, monkeypatch):
     for at in (cache, {}):  # a later save point, then a run's first
         with pytest.raises(NotImplementedError, match="fold broke"):
             validate_cases(relu_net, val, inferer_cache=at, **kw)
+
+
+def test_validation_folds_a_vbnet(data, monkeypatch):
+    """A vbnet validates through ``build_forward``'s fold (forced on the
+    CPU, as above): the fold is built from the bottleneck net, and its
+    mean Dice is within 0.02 of the float32 module's."""
+    import segmentation3d_tpu_torch.models.fused_vnet as fused
+    from segmentation3d_tpu_torch.core import seg_infer
+    root, cases = data
+    val = make_train_list(str(root / "val_vbnet.txt"), [cases[2]])
+    kw = dict(spacing=[1.0, 1.0, 1.0], interpolation="LINEAR", num_classes=2,
+              max_stride=4, normalizers=[AdaptiveNormalizer()])
+    _, vbnet = seeded_variables(seed=14, kw=dict(KW, bottleneck=True))
+    module = validate_cases(vbnet, val, dtype=torch.float32, **kw)
+    build = seg_infer.build_forward
+    monkeypatch.setattr(seg_infer, "build_forward",
+                        lambda net, dtype, device: build(net, dtype, device, fused=True))
+    folds_built = []
+    real = fused.build_fused_forward
+
+    def spy(net, dtype=torch.bfloat16, stats=False):
+        folds_built.append(net.bottleneck)
+        return real(net, dtype=dtype, stats=stats)
+    monkeypatch.setattr(fused, "build_fused_forward", spy)
+    folded = validate_cases(vbnet, val, dtype=torch.bfloat16, **kw)
+    assert folds_built == [True]
+    assert folded[2] == module[2] == 1
+    assert abs(folded[0] - module[0]) < 0.02
